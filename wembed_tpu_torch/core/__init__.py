@@ -1,0 +1,16 @@
+from .options import EmbedderOptions, OptimizerType, RepulsionMode, WeightType
+from .state import DeviceGraph, EmbedState, init_state, random_positions
+from .embedder import Loss, WEmbedEmbedder
+
+__all__ = [
+    "EmbedderOptions",
+    "OptimizerType",
+    "RepulsionMode",
+    "WeightType",
+    "DeviceGraph",
+    "EmbedState",
+    "init_state",
+    "random_positions",
+    "Loss",
+    "WEmbedEmbedder",
+]

@@ -1,0 +1,221 @@
+"""The host-level embedder.
+
+Counterpart of the flat ``WEmbedEmbedder`` of ``wembed_tpu/core/embedder.py``
+(the reference's NewWEmbedEmbedder surface,
+src/embeddingLib/include/embedder/EmbedderInterface.hpp:15-158):
+``calculate_step`` runs one iteration, ``calculate_embedding`` runs the
+loop to convergence.  The port runs the dense path only; the span path,
+the profiled step, weight dumping and debug checks raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..graphs.csr import CSRGraph
+from ..utils import rng as rng_mod
+from ..utils.timer import Timer, TimingResult
+from . import forces
+from . import step as step_mod
+from . import weights as weights_mod
+from .options import EmbedderOptions
+from .state import DeviceGraph, EmbedState, init_state, random_positions
+
+
+class Loss:
+    """Loss triple from the most recent step (reference include/wembed.h:43-48)."""
+
+    def __init__(self, attractive: float, repulsive: float):
+        self.attractive = float(attractive)
+        self.repulsive = float(repulsive)
+
+    @property
+    def total(self) -> float:
+        return self.attractive + self.repulsive
+
+    def __repr__(self) -> str:
+        return (
+            f"Loss(attractive={self.attractive}, repulsive={self.repulsive}, "
+            f"total={self.total})"
+        )
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """``device`` as a torch.device; raises where it cannot run.  A missing
+    CUDA never turns into the CPU: CPU runs ask for ``device="cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class WEmbedEmbedder:
+    """Flat (single-level) embedder on one device."""
+
+    def __init__(
+        self,
+        graph: CSRGraph,
+        opts: EmbedderOptions | None = None,
+        timer: Timer | None = None,
+        initial_coordinates: np.ndarray | None = None,
+        initial_weights: np.ndarray | None = None,
+        verbose: bool = True,
+        profile: bool = False,
+        device: torch.device | str = "cuda",
+    ):
+        self.opts = opts or EmbedderOptions()
+        if profile:
+            raise NotImplementedError(
+                "the profiled (phase-split) step is not ported yet: ROADMAP.md, "
+                "Queue 1, item 12"
+            )
+        if self.opts.dump_weights or self.opts.debug_checks:
+            raise NotImplementedError(
+                "dump_weights and debug_checks are not ported yet: ROADMAP.md, "
+                "Queue 1, item 2"
+            )
+        self.device = resolve_device(device)
+        self.opts.resolve_repulsion_mode(graph.num_vertices)
+        self.graph = graph
+        self.timer = timer or Timer()
+        self.verbose = verbose
+        self._dtype = torch.float64 if self.opts.dtype == "float64" else torch.float32
+        self._dg = DeviceGraph.build(graph, self.device)
+        self._adj = forces.build_dense_adjacency(self._dg)
+        n, d = graph.num_vertices, self.opts.embedding_dimension
+
+        if initial_weights is None:
+            initial_weights = weights_mod.initial_weights(graph, self.opts)
+        if initial_coordinates is None:
+            initial_coordinates = random_positions(n, d, rng_mod.host_rng())
+
+        self._state = init_state(
+            np.asarray(initial_coordinates, dtype=np.float64),
+            rng_mod.new_generator(self.device),
+            self._dtype,
+            self.device,
+        )
+        self._set_weights_internal(np.asarray(initial_weights, dtype=np.float64))
+
+    # -------------------------------------------------------------- internals
+    def _set_weights_internal(self, w: np.ndarray) -> None:
+        if w.shape != (self.graph.num_vertices,):
+            raise ValueError(
+                f"weights shape {w.shape} != ({self.graph.num_vertices},)"
+            )
+        self._weights_np = w
+        self._inv_w = torch.as_tensor(
+            weights_mod.inv_exp_weights(w, self.opts.embedding_dimension),
+            dtype=self._dtype,
+            device=self.device,
+        )
+
+    # ------------------------------------------------------------ embedding
+    def calculate_step(self) -> None:
+        """One iteration (reference NewWEmbedEmbedder.cpp:14-92)."""
+        if self.graph.num_vertices <= 1:
+            # coarsest-hierarchy-layer short-circuit
+            # (NewWEmbedEmbedder.cpp:25-28)
+            self._state = dataclasses.replace(
+                self._state,
+                iteration=self._state.iteration + 1,
+                pos_change=torch.zeros((), dtype=torch.float32, device=self.device),
+            )
+            return
+        with self.timer.phase("step", "Embedding step", self.device):
+            self._state = step_mod.fused_step(
+                self._state, self._inv_w, self._adj, self._dg, self.opts
+            )
+        it = self._state.iteration
+        if self.verbose and (it == 1 or (it > 0 and it % 10 == 0)):
+            print(
+                f"(Iteration {it}: #rep forces {int(self._state.num_rep_forces)}, "
+                f"relative pos change: {float(self._state.pos_change)})"
+            )
+
+    def is_finished(self) -> bool:
+        return self._state.iteration >= self.opts.max_iterations or (
+            self._state.iteration > 0
+            and float(self._state.pos_change) < self.opts.position_min_change
+        )
+
+    def calculate_embedding(self, max_iterations: int | None = None) -> None:
+        """Step until convergence.  ``max_iterations`` optionally caps this
+        CALL below the configured budget (segmented runs)."""
+        cap = self.opts.max_iterations if max_iterations is None else min(
+            max_iterations, self.opts.max_iterations
+        )
+        if self.graph.num_vertices <= 1:
+            self._state = dataclasses.replace(
+                self._state,
+                pos_change=torch.zeros((), dtype=torch.float32, device=self.device),
+            )
+            return
+        with self.timer.phase("embedding_all", "Embedding", self.device):
+            self._state = step_mod.run_embedding(
+                self._state, self._inv_w, self._adj, self._dg, self.opts, cap
+            )
+
+    # ------------------------------------------------------------- accessors
+    @property
+    def state(self) -> EmbedState:
+        return self._state
+
+    @state.setter
+    def state(self, s: EmbedState) -> None:
+        self._state = s
+
+    def get_coordinates(self) -> np.ndarray:
+        return self._state.positions.detach().to("cpu", torch.float64).numpy()
+
+    def get_weights(self) -> np.ndarray:
+        return self._weights_np.copy()
+
+    def set_coordinates(self, coordinates: np.ndarray) -> None:
+        coordinates = np.asarray(coordinates, dtype=np.float64)
+        n, d = self.graph.num_vertices, self.opts.embedding_dimension
+        if coordinates.shape[0] != n:
+            raise ValueError(f"expected {n} coordinate rows, got {coordinates.shape[0]}")
+        if coordinates.shape[1] != d:
+            # reference warns and copies the overlapping prefix
+            # (NewWEmbedEmbedder.cpp:125-140)
+            current = self.get_coordinates()
+            k = min(d, coordinates.shape[1])
+            current[:, :k] = coordinates[:, :k]
+            coordinates = current
+        self._state = dataclasses.replace(
+            self._state,
+            positions=torch.as_tensor(coordinates, dtype=self._dtype, device=self.device),
+        )
+
+    def set_weights(self, w: np.ndarray) -> None:
+        self._set_weights_internal(np.asarray(w, dtype=np.float64))
+
+    def get_timings(self) -> list[TimingResult]:
+        return self.timer.results()
+
+    def get_loss(self) -> Loss:
+        return Loss(float(self._state.attract_loss), float(self._state.repel_loss))
+
+    @property
+    def iteration(self) -> int:
+        return self._state.iteration
+
+    @property
+    def num_vertices(self) -> int:
+        return self.graph.num_vertices
+
+    @property
+    def embedding_dimension(self) -> int:
+        return self.opts.embedding_dimension

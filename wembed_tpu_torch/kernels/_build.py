@@ -1,0 +1,100 @@
+"""Builds the package's CUDA sources into plain C-interface shared libraries.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into
+``build/wembed_tpu_torch/lib<name>_<hash>.so`` at the repository root the
+first time a kernel of it launches, and loads with ``ctypes``.  The file
+name carries a hash of the sources and the flags, so an edit rebuilds.
+
+Flags: ``--fmad=false`` keeps every multiply and add separately rounded,
+as PyTorch's eager elementwise ops round them, so the kernels' dead-zone
+masks agree bit for bit with their plain twins.  ``--use_fast_math`` is
+never used for the same reason (it also swaps IEEE sqrt and division for
+approximations).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "wembed_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+@dataclass(frozen=True)
+class BuildInfo:
+    path: Path
+    seconds: float  # 0.0 when the library was already built
+    log: str  # nvcc's output (ptxas register and shared-memory report)
+
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
+
+
+def _sources(name: str) -> list[Path]:
+    main = CSRC / f"{name}.cu"
+    if not main.exists():
+        raise FileNotFoundError(main)
+    return [main, *sorted(CSRC.glob("*.cuh"))]
+
+
+def build(name: str) -> BuildInfo:
+    """Compile ``csrc/<name>.cu`` unless a library of the same sources exists."""
+    sources = _sources(name)
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return BuildInfo(out, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build to a private name, then rename: a concurrent process never
+    # loads a half-written library
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(sources[0])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with code {proc.returncode}: {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return BuildInfo(out, seconds, proc.stdout + proc.stderr)
+
+
+def load(name: str, configure: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built if needed and loaded once per
+    process; ``configure`` sets its functions' argtypes on first load."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name).path))
+        configure(lib)
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,177 @@
+"""The fused all-pairs force pass: attraction + repulsion in one kernel.
+
+Counterpart of ``wembed_tpu/kernels/fused_dense.py``.  One pass over every
+(row, column) pair of the graph computes
+
+  dist2   = sum_k (p_v[k] - p_u[k])^2          (per-dimension differences)
+  ws      = invw_v * invw_u  (or their sum, additive weights)
+  repel   : non-neighbour, colours differ, dist2 * ws^2 <= L^2  (dead zone,
+            reference NewWEmbedEmbedder.cpp:242-247)
+  attract : neighbour with dist2 * ws^2 > L^2  (hinge,
+            reference NewWEmbedEmbedder.cpp:210-215)
+  coeff   = rep_scale*ws/dist [repel, dist > 0] - att_scale*ws/dist [attract]
+  force_v = sum_u coeff * (p_v - p_u)
+
+plus both losses, the repulsion-candidate count (numRepForceCalculations,
+NewWEmbedEmbedder.cpp:321-332) and per-vertex coincident-pair counts (for
+the random kicks, NewWEmbedEmbedder.cpp:197-200,229-233).  The weighted
+distance is tested in the TPU kernel's squared form.
+
+``fused_dense_forces`` launches the CUDA kernel ``csrc/fused_dense.cu`` for
+CUDA tensors and runs ``fused_dense_forces_reference``, the plain PyTorch
+version, for CPU tensors.  Unlike the TPU kernel, neither pads positions
+to 128 columns nor rows to a tile multiple, and both visit every column.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_REFERENCE_BLOCK = 1024  # rows per block of the plain version
+
+
+def fused_dense_forces_reference(
+    pos: torch.Tensor,  # (n, d) f32 or f64
+    invw: torch.Tensor,  # (n,)
+    colors: torch.Tensor,  # (n,) int32
+    adj: torch.Tensor,  # (n, n) uint8
+    *,
+    dim: int,
+    L: float,
+    att_scale: float,
+    rep_scale: float,
+    additive: bool,
+):
+    """Plain PyTorch version of the kernel, in blocks of rows so that the
+    (block, n) intermediates stay small.  Same outputs as
+    ``fused_dense_forces``; the losses come back in ``pos.dtype``."""
+    n = pos.shape[0]
+    dtype, device = pos.dtype, pos.device
+    force = torch.empty((n, dim), dtype=dtype, device=device)
+    zero_count = torch.empty((n,), dtype=torch.int32, device=device)
+    att_loss = torch.zeros((), dtype=dtype, device=device)
+    rep_loss = torch.zeros((), dtype=dtype, device=device)
+    count = torch.zeros((), dtype=torch.int64, device=device)
+    L2 = float(L) * float(L)
+    for s in range(0, n, _REFERENCE_BLOCK):
+        e = min(s + _REFERENCE_BLOCK, n)
+        diffs = [pos[s:e, k, None] - pos[None, :, k] for k in range(dim)]
+        dist2 = torch.zeros((e - s, n), dtype=dtype, device=device)
+        for diff in diffs:
+            dist2 = dist2 + diff * diff
+        iw_r, iw_c = invw[s:e, None], invw[None, :]
+        ws = iw_r + iw_c if additive else iw_r * iw_c
+        nbr = adj[s:e] != 0
+        differ = colors[s:e, None] != colors[None, :]
+        wdist2 = dist2 * (ws * ws)
+        rep = ~nbr & differ & (wdist2 <= L2)
+        att = nbr & (wdist2 > L2)
+        posd = dist2 > 0
+        rep_act = rep & posd
+        dist = torch.sqrt(dist2)
+        inv = 1.0 / torch.clamp_min(dist, 1e-30)
+        coeff = torch.where(rep_act, rep_scale * ws * inv, 0.0) - torch.where(
+            att, att_scale * ws * inv, 0.0
+        )
+        for k, diff in enumerate(diffs):
+            force[s:e, k] = torch.sum(coeff * diff, dim=1)
+        linvws = L / ws
+        att_loss += torch.sum(torch.where(att, dist - linvws, 0.0))
+        rep_loss += torch.sum(torch.where(rep_act, linvws - dist, 0.0))
+        count += torch.sum(rep)
+        zero_count[s:e] = torch.sum(~posd & (nbr | rep), dim=1)
+    return force, zero_count, att_loss, rep_loss, count
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.wembed_fused_dense_rows_per_block.argtypes = []
+    lib.wembed_fused_dense_rows_per_block.restype = i
+    lib.wembed_fused_dense_max_dim.argtypes = []
+    lib.wembed_fused_dense_max_dim.restype = i
+    lib.wembed_cuda_error_string.argtypes = [i]
+    lib.wembed_cuda_error_string.restype = ctypes.c_char_p
+    lib.wembed_fused_dense_forces.argtypes = [
+        p, p, p, p, i, i, d, d, d, i, p, p, p, p, p, p, i, p,
+    ]
+    lib.wembed_fused_dense_forces.restype = i
+
+
+def _check(pos, invw, colors, adj, dim):
+    n = pos.shape[0]
+    expected = [
+        ("pos", pos, torch.float32, (n, dim)),
+        ("invw", invw, torch.float32, (n,)),
+        ("colors", colors, torch.int32, (n,)),
+        ("adj", adj, torch.uint8, (n, n)),
+    ]
+    for name, t, dtype, shape in expected:
+        if t.device != pos.device:
+            raise ValueError(f"{name} is on {t.device}, pos on {pos.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"the CUDA kernel takes {name} as {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if n < 1:
+        raise ValueError("the CUDA kernel needs at least one vertex")
+
+
+def fused_dense_forces(
+    pos: torch.Tensor,
+    invw: torch.Tensor,
+    colors: torch.Tensor,
+    adj: torch.Tensor,
+    *,
+    dim: int,
+    L: float,
+    att_scale: float,
+    rep_scale: float,
+    additive: bool,
+):
+    """The whole force pass of one embedding step.
+
+    Returns (force (n, d), zero_count (n,) int32, att_loss, rep_loss,
+    rep_count int64), the scalars as 0-d tensors on ``pos.device``.  CPU
+    tensors go through the plain version; CUDA tensors (f32 only, d <= 8)
+    through the kernel, on the current stream, without synchronising.
+    """
+    kwargs = dict(dim=dim, L=L, att_scale=att_scale, rep_scale=rep_scale, additive=additive)
+    if pos.device.type == "cpu":
+        return fused_dense_forces_reference(pos, invw, colors, adj, **kwargs)
+    if pos.device.type != "cuda":
+        raise ValueError(f"no fused_dense kernel for device {pos.device}")
+    _check(pos, invw, colors, adj, dim)
+    lib = _build.load("fused_dense", _configure)
+    if dim > lib.wembed_fused_dense_max_dim():
+        raise ValueError(
+            f"the CUDA kernel takes d <= {lib.wembed_fused_dense_max_dim()}, got {dim}"
+        )
+    n, device = pos.shape[0], pos.device
+    parts = -(-n // lib.wembed_fused_dense_rows_per_block())
+    force = torch.empty((n, dim), dtype=torch.float32, device=device)
+    zero_count = torch.empty((n,), dtype=torch.int32, device=device)
+    part_loss = torch.empty((parts, 2), dtype=torch.float64, device=device)
+    part_count = torch.empty((parts,), dtype=torch.int64, device=device)
+    losses = torch.empty((2,), dtype=torch.float32, device=device)
+    count = torch.empty((), dtype=torch.int64, device=device)
+    rc = lib.wembed_fused_dense_forces(
+        pos.data_ptr(), invw.data_ptr(), colors.data_ptr(), adj.data_ptr(),
+        n, dim, float(L), float(att_scale), float(rep_scale), int(bool(additive)),
+        force.data_ptr(), zero_count.data_ptr(), part_loss.data_ptr(),
+        part_count.data_ptr(), losses.data_ptr(), count.data_ptr(),
+        device.index, torch.cuda.current_stream(device).cuda_stream,
+    )
+    if rc != 0:
+        msg = lib.wembed_cuda_error_string(rc).decode()
+        raise RuntimeError(f"fused_dense kernel launch failed: {msg} (cudaError {rc})")
+    fused_dense_forces.launches += 1
+    return force, zero_count, losses[0], losses[1], count
+
+
+fused_dense_forces.launches = 0  # kernel launches; the plain version is not counted
