@@ -49,8 +49,8 @@ def test_default_device_raises_without_cuda():
 @pytest.mark.parametrize(
     "opts",
     [
-        EmbedderOptions(repulsion_mode=RepulsionMode.BUCKET),
-        EmbedderOptions(dense_threshold=3),  # AUTO above the threshold
+        EmbedderOptions(repulsion_mode=RepulsionMode.BUCKET, span_layout="cells"),
+        EmbedderOptions(dense_threshold=3, index_size=0.5),  # AUTO above the threshold
         EmbedderOptions(num_negative_samples=5),
         EmbedderOptions(dump_weights=True),
     ],

@@ -8,8 +8,10 @@ PyTorch; each Pallas kernel of the JAX package becomes a hand-written CUDA
 kernel under ``csrc/`` with a plain PyTorch version beside it, which CPU
 tensors run.
 
-The port currently runs the flat dense embedding (n <= dense_threshold);
-other paths raise ``NotImplementedError`` naming their ROADMAP item.
+The port runs the flat embedding: the dense path (n <= dense_threshold)
+and the span path above it.  Negative sampling, a partial index, the cell
+layout, layered and distributed runs and the profiled step raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from . import core, graphs, utils

@@ -29,7 +29,8 @@ from .utils import rng as rng_mod
 from .utils.timer import TimingResult, timings_to_string
 
 # SpatialIndex enum values (include/wembed.h:24-27), kept for signature
-# compatibility; the dense path uses no spatial index.
+# compatibility; the dense path uses no spatial index and the span path
+# (n > dense_threshold) its own candidate windows.
 IndexSNN = 1
 IndexSprk = 2
 

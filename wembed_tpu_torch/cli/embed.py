@@ -39,8 +39,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--unit-weights", action="store_true",
                    help="Disable degree-based weights (use unit weights instead)")
     p.add_argument("--index-type", type=int, default=2,
-                   help="Type of spatial index (1=SNN, 2=Sprk; the dense path "
-                   "uses none)")
+                   help="Type of spatial index (1=SNN, 2=Sprk; accepted for "
+                   "compatibility: the dense path uses none, the span path its "
+                   "own windows)")
     p.add_argument("--min-change", type=float, default=1e-4,
                    help="Minimum change in position to stop the embedding.")
     p.add_argument("--attraction", type=float, default=1.0,

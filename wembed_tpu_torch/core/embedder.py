@@ -4,9 +4,11 @@ Counterpart of the flat ``WEmbedEmbedder`` of ``wembed_tpu/core/embedder.py``
 (the reference's NewWEmbedEmbedder surface,
 src/embeddingLib/include/embedder/EmbedderInterface.hpp:15-158):
 ``calculate_step`` runs one iteration, ``calculate_embedding`` runs the
-loop to convergence.  The port runs the dense path only; the span path,
-the profiled step, weight dumping and debug checks raise
-``NotImplementedError``.
+loop to convergence.  Graphs up to ``dense_threshold`` vertices take the
+dense path (the fused all-pairs kernel); larger ones the span path, with
+its window growth protocol (``core/span_driver.py``).  The profiled step,
+weight dumping and debug checks raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from ..utils.timer import Timer, TimingResult
 from . import forces
 from . import step as step_mod
 from . import weights as weights_mod
-from .options import EmbedderOptions
+from ..kernels.span_sparse import SpanIndex, build_span_structures
+from .options import EmbedderOptions, RepulsionMode
+from .span_driver import SpanGrowthMixin
 from .state import DeviceGraph, EmbedState, init_state, random_positions
 
 
@@ -60,7 +64,7 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return dev
 
 
-class WEmbedEmbedder:
+class WEmbedEmbedder(SpanGrowthMixin):
     """Flat (single-level) embedder on one device."""
 
     def __init__(
@@ -86,13 +90,19 @@ class WEmbedEmbedder:
                 "Queue 1, item 2"
             )
         self.device = resolve_device(device)
-        self.opts.resolve_repulsion_mode(graph.num_vertices)
+        self._span = (
+            self.opts.resolve_repulsion_mode(graph.num_vertices) is RepulsionMode.BUCKET
+        )
         self.graph = graph
         self.timer = timer or Timer()
         self.verbose = verbose
         self._dtype = torch.float64 if self.opts.dtype == "float64" else torch.float32
         self._dg = DeviceGraph.build(graph, self.device)
-        self._adj = forces.build_dense_adjacency(self._dg)
+        # the dense path's (n, n) adjacency; the span path never builds it
+        self._adj = None if self._span else forces.build_dense_adjacency(self._dg)
+        self._index: SpanIndex | None = None
+        self._growth_events = 0
+        self._shrink_events = 0
         n, d = graph.num_vertices, self.opts.embedding_dimension
 
         if initial_weights is None:
@@ -107,6 +117,7 @@ class WEmbedEmbedder:
             self.device,
         )
         self._set_weights_internal(np.asarray(initial_weights, dtype=np.float64))
+        self._presize_spans()
 
     # -------------------------------------------------------------- internals
     def _set_weights_internal(self, w: np.ndarray) -> None:
@@ -115,11 +126,39 @@ class WEmbedEmbedder:
                 f"weights shape {w.shape} != ({self.graph.num_vertices},)"
             )
         self._weights_np = w
+        self._weights = torch.as_tensor(w, dtype=self._dtype, device=self.device)
         self._inv_w = torch.as_tensor(
             weights_mod.inv_exp_weights(w, self.opts.embedding_dimension),
             dtype=self._dtype,
             device=self.device,
         )
+        if self._span:
+            # the weight groups, hence the whole skeleton, follow the weights
+            self._growth_events = 0
+            self._swap_index(
+                SpanIndex.build(w, self.opts, self.graph.edge_src, self.graph.col_idx)
+            )
+
+    # span growth protocol: SpanGrowthMixin (core/span_driver.py)
+    def _swap_index(self, index: SpanIndex) -> None:
+        """Install resized windows: the skeleton's device tables are shared,
+        only the (NB, R) window widths move to the device."""
+        self._index = index
+        self._blk_t = index.blk_t_tensor(self.device)
+
+    def _span_structures(self):
+        return build_span_structures(
+            self._state.positions, self._inv_w, self._weights, self._dg.colors,
+            self._index, self.opts, self._blk_t,
+        )
+
+    def _step(self, state: EmbedState) -> EmbedState:
+        if self._span:
+            return step_mod.span_step(
+                state, self._weights, self._inv_w, self._dg, self._index, self._blk_t,
+                self.opts,
+            )
+        return step_mod.fused_step(state, self._inv_w, self._adj, self._dg, self.opts)
 
     # ------------------------------------------------------------ embedding
     def calculate_step(self) -> None:
@@ -134,9 +173,7 @@ class WEmbedEmbedder:
             )
             return
         with self.timer.phase("step", "Embedding step", self.device):
-            self._state = step_mod.fused_step(
-                self._state, self._inv_w, self._adj, self._dg, self.opts
-            )
+            self._state = self._step(self._state)
         it = self._state.iteration
         if self.verbose and (it == 1 or (it > 0 and it % 10 == 0)):
             print(
@@ -162,10 +199,18 @@ class WEmbedEmbedder:
                 pos_change=torch.zeros((), dtype=torch.float32, device=self.device),
             )
             return
+        min_change = self.opts.position_min_change
         with self.timer.phase("embedding_all", "Embedding", self.device):
-            self._state = step_mod.run_embedding(
-                self._state, self._inv_w, self._adj, self._dg, self.opts, cap
-            )
+            if not self._span:
+                self._state = step_mod.run_embedding(self._step, self._state, cap, min_change)
+                return
+
+            def run_segment(seg_cap, stop_on_overflow):
+                self._state = step_mod.run_embedding(
+                    self._step, self._state, seg_cap, min_change, stop_on_overflow
+                )
+
+            self._drive_span_loop(run_segment, cap)
 
     # ------------------------------------------------------------- accessors
     @property
@@ -198,9 +243,11 @@ class WEmbedEmbedder:
             self._state,
             positions=torch.as_tensor(coordinates, dtype=self._dtype, device=self.device),
         )
+        self._presize_spans()
 
     def set_weights(self, w: np.ndarray) -> None:
         self._set_weights_internal(np.asarray(w, dtype=np.float64))
+        self._presize_spans()
 
     def get_timings(self) -> list[TimingResult]:
         return self.timer.results()

@@ -3,14 +3,16 @@
 Counterpart of ``wembed_tpu/core/options.py``: the reference's internal
 EmbedderOptions (reference:
 src/embeddingLib/include/embedder/EmbedderOptions.hpp:21-51) with identical
-defaults, plus ``dtype``, ``repulsion_mode`` and ``dense_threshold``.  The
-JAX package's TPU kernel switches (``fused_dense``, ``fused_span``,
-``span_layout``, ...) have no counterpart: the port picks its kernel from
-the device of the tensors.
+defaults, plus ``dtype``, ``repulsion_mode``, ``dense_threshold`` and the
+span path's ``window_capacity``, ``span_layout`` and
+``span_resize_interval``.  The JAX package's TPU kernel switches
+(``fused_dense``, ``fused_span``) have no counterpart: the port picks its
+kernel from the device of the tensors.
 
-The port runs the dense path only.  Everything that would leave it
-(negative sampling, the bucket/span path) raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+The port runs the dense path (n <= dense_threshold) and the windowed span
+path above it.  Negative sampling, a partial index (``index_size < 1``)
+and the cell layout raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ class RepulsionMode(enum.Enum):
 
     AUTO   — dense up to ``dense_threshold`` vertices, bucket above.
     DENSE  — exact all-pairs repulsion (the fused all-pairs force kernel).
-    BUCKET — the span/bucket candidate path; not ported yet.
+    BUCKET — the span path: windows over projected, sorted weight groups,
+             swept by the span kernel (``kernels/span_sparse.py``).
     """
 
     AUTO = 0
@@ -76,10 +79,18 @@ class EmbedderOptions:
     dtype: str = "float32"  # positions/forces dtype; "float64" for CPU parity runs
     repulsion_mode: RepulsionMode = RepulsionMode.AUTO
     dense_threshold: int = 16384  # AUTO switches to BUCKET above this
+    window_capacity: int = 48  # base candidate window of the initial span sizing
+    # "auto" and "windows": per-(query block, target row) tile windows on the
+    # second principal axis; "cells" (three-level binning) is not ported
+    span_layout: str = "auto"
+    # the embedding loop pauses every this many iterations so that
+    # over-provisioned span windows can shrink; 0 disables the pauses
+    span_resize_interval: int = 50
     debug_checks: bool = False
 
     def resolve_repulsion_mode(self, n: int) -> RepulsionMode:
-        """The repulsion mode for an ``n``-vertex graph: DENSE, or raise."""
+        """The repulsion mode for an ``n``-vertex graph, DENSE or BUCKET, or
+        raise for what the port does not run yet."""
         if self.num_negative_samples >= 0:
             raise NotImplementedError(
                 "negative sampling (num_negative_samples >= 0) is not ported "
@@ -89,9 +100,16 @@ class EmbedderOptions:
         if mode is RepulsionMode.AUTO:
             mode = RepulsionMode.DENSE if n <= self.dense_threshold else RepulsionMode.BUCKET
         if mode is RepulsionMode.BUCKET:
-            raise NotImplementedError(
-                f"the span/bucket repulsion path (n={n} > dense_threshold="
-                f"{self.dense_threshold}, or RepulsionMode.BUCKET) is not ported "
-                "yet: ROADMAP.md, Queue 1, items 5-7"
-            )
+            if self.index_size < 1.0:
+                raise NotImplementedError(
+                    f"a partial span index (index_size={self.index_size} < 1) is not "
+                    "ported yet: ROADMAP.md, Queue 1, item 14"
+                )
+            if self.span_layout == "cells":
+                raise NotImplementedError(
+                    'the cell span layout (span_layout="cells") is not ported yet: '
+                    "ROADMAP.md, Queue 1, item 15"
+                )
+            if self.span_layout not in ("auto", "windows"):
+                raise ValueError(f"unknown span_layout {self.span_layout!r}")
         return mode

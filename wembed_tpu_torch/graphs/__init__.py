@@ -1,4 +1,4 @@
 from .csr import CSRGraph, from_edges
-from . import io
+from . import algorithms, generators, io
 
-__all__ = ["CSRGraph", "from_edges", "io"]
+__all__ = ["CSRGraph", "from_edges", "algorithms", "generators", "io"]

@@ -40,6 +40,13 @@ def read_edge_list(path: str, comment: str = "#", delimiter: str | None = None) 
     return from_edges(np.asarray(pairs, dtype=np.int64).reshape(-1, 2))
 
 
+def write_edge_list(path: str, g: CSRGraph) -> None:
+    """Write each undirected edge once as 'src dst' with src < dst."""
+    with open(path, "w") as f:
+        for u, v in g.edge_list():
+            f.write(f"{u} {v}\n")
+
+
 def read_coordinates(path: str, comment: str = "%", delimiter: str = ",") -> np.ndarray:
     """Read a coordinate CSV: one 'id,c1,...,ck' row per vertex.
 
