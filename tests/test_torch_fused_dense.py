@@ -54,10 +54,16 @@ def _pallas(pos, invw, colors, adj, additive):
     return np.asarray(f)[:n, :d], np.asarray(z)[:n], float(a), float(r), int(c)
 
 
+def _bits(adj):
+    """The port's bit adjacency of a dense 0/1 matrix."""
+    src, dst = np.nonzero(adj)
+    return torch_fused.adjacency_bits(torch.from_numpy(src), torch.from_numpy(dst), adj.shape[0])
+
+
 def _port(pos, invw, colors, adj, additive):
     out = torch_fused.fused_dense_forces(
         torch.from_numpy(pos), torch.from_numpy(invw), torch.from_numpy(colors),
-        torch.from_numpy(adj), dim=pos.shape[1], additive=additive, **KW,
+        _bits(adj), dim=pos.shape[1], additive=additive, **KW,
     )
     return tuple(t.numpy() for t in out)
 
@@ -140,3 +146,32 @@ def test_port_counts_every_pair(n):
         assert cnt_j == count
     else:
         assert cnt_j < count
+
+
+@pytest.mark.parametrize("n", [1000, 1024, 1100])
+def test_bit_adjacency_unpacks_to_the_u8_adjacency(n):
+    """The device-built bit adjacency (one int32 word per 32 columns, the
+    last word ragged unless 32 divides n) unpacks to the u8 matrix that the
+    JAX package builds, repeated and one-way edges included."""
+    from wembed_tpu_torch.core import forces
+    from wembed_tpu_torch.core.state import DeviceGraph
+    from wembed_tpu_torch.graphs import from_edges
+
+    rng = np.random.default_rng(n)
+    g = from_edges(rng.integers(0, n, size=(6 * n, 2)), num_vertices=n)
+    bits = forces.build_dense_adjacency(DeviceGraph.build(g, torch.device("cpu")))
+    assert bits.dtype == torch.int32 and tuple(bits.shape) == (n, -(-n // 32))
+    u8 = np.zeros((n, n), np.uint8)
+    u8[g.edge_src, g.col_idx] = 1
+    assert u8.sum() > 4 * n and u8[:, -1].any()
+    np.testing.assert_array_equal(torch_fused.neighbour_mask(bits, slice(0, n), n).numpy(), u8 != 0)
+    # bit c % 32 of word c // 32, every bit of the sign word included
+    words = bits.numpy().view(np.uint32)
+    for v, c in zip(*np.nonzero(u8[:50])):
+        assert words[v, c // 32] >> (c % 32) & 1
+    assert int(np.unpackbits(words.view(np.uint8)).sum()) == int(u8.sum())
+    src = np.r_[g.edge_src[:7], g.edge_src[:7]]  # a repeated pair sets its bit once
+    dst = np.r_[g.col_idx[:7], g.col_idx[:7]]
+    twice = torch_fused.adjacency_bits(torch.from_numpy(src), torch.from_numpy(dst), n)
+    np.testing.assert_array_equal(twice.numpy(), torch_fused.adjacency_bits(
+        torch.from_numpy(src[:7]), torch.from_numpy(dst[:7]), n).numpy())

@@ -74,7 +74,7 @@ def test_kernel_wrapper_uses_plain_version_only_for_cpu_tensors():
     n = 4
     args = (
         torch.zeros((n, 2)), torch.ones(n), torch.arange(n, dtype=torch.int32),
-        torch.zeros((n, n), dtype=torch.uint8),
+        torch.zeros((n, 1), dtype=torch.int32),  # the bit adjacency of no edges
     )
     before = fused_dense.fused_dense_forces.launches
     fused_dense.fused_dense_forces(*args, dim=2, L=1.0, att_scale=1.0, rep_scale=1.0, additive=False)

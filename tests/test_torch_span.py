@@ -20,7 +20,7 @@ from wembed_tpu.kernels import span_sparse as jax_span
 from wembed_tpu_torch.core import EmbedderOptions
 from wembed_tpu_torch.core import candidates
 from wembed_tpu_torch.kernels import span_sparse, span_sweep
-from wembed_tpu_torch.kernels.fused_dense import fused_dense_forces_reference
+from wembed_tpu_torch.kernels.fused_dense import adjacency_bits, fused_dense_forces_reference
 
 torch.set_num_threads(1)
 
@@ -216,9 +216,12 @@ def test_sweep_matches_pallas_kernel(kw):
     rowsum = out[:, d]
     force_j = q * rowsum[:, None] - out[:, :d]  # the TPU form, q*rowsum - coeff@S
 
+    # through the kernel's split into work items of at most 3 tiles
+    items = torch.tensor(span_sweep.work_items(c.jidx.blk_t, 3))
+    assert items.shape[0] > c.jidx.nb
     force, loss, count, zero = span_sweep.span_sweep_reference(
         *_jax_records(s_j, c.jidx, d), dim=d, L=1.0, rep_scale=1.0,
-        additive=c.opts.additive_weights,
+        additive=c.opts.additive_weights, items=items,
     )
     np.testing.assert_array_equal(count.numpy(), out[:, d + 2].astype(np.int32))
     np.testing.assert_array_equal(zero.numpy(), out[:, d + 3].astype(np.int32))
@@ -237,14 +240,15 @@ def test_sweep_matches_pallas_kernel(kw):
 def test_sweep_wrapper_runs_the_plain_version_on_the_cpu():
     c = Case(900, 2, span_scale=8.0)
     args, _ = _port_sweep_args(c)
+    kw = dict(dim=2, L=1.0, rep_scale=1.0, additive=False, items=c.idx.work_items(torch.device("cpu")))
     before = span_sweep.span_sweep.launches
-    got = span_sweep.span_sweep(*args, dim=2, L=1.0, rep_scale=1.0, additive=False)
-    want = span_sweep.span_sweep_reference(*args, dim=2, L=1.0, rep_scale=1.0, additive=False)
+    got = span_sweep.span_sweep(*args, **kw)
+    want = span_sweep.span_sweep_reference(*args, **kw)
     assert span_sweep.span_sweep.launches == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="no span_sweep kernel"):
-        span_sweep.span_sweep(*(a.to("meta") for a in args), dim=2, L=1.0, rep_scale=1.0, additive=False)
+        span_sweep.span_sweep(*(a.to("meta") for a in args), **kw)
 
 
 @pytest.mark.parametrize(
@@ -261,9 +265,70 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(change, error):
     on the device): anything the kernel does not take raises."""
     c = Case(900, 2, span_scale=8.0)
     args, _ = _port_sweep_args(c)
-    span_sweep._check(*args, 2)
+    items = c.idx.work_items(torch.device("cpu"))
+    span_sweep._check(*args, items, 2)
     with pytest.raises(error):
-        span_sweep._check(*change(args), 2)
+        span_sweep._check(*change(args), items, 2)
+    with pytest.raises(ValueError, match="work-item table"):
+        span_sweep._check(*args, None, 2)
+    with pytest.raises(ValueError):
+        span_sweep._check(*args, items[:, :3].contiguous(), 2)
+
+
+def _random_windows(c: Case, seed: int) -> np.ndarray:
+    """Window widths of 0 to 5 tiles, some blocks without any."""
+    rng = np.random.default_rng(seed)
+    widths = rng.integers(0, 6, size=c.idx.blk_t.shape) * (rng.random(c.idx.blk_t.shape) < 0.6)
+    widths[::5] = 0
+    return np.minimum(widths, c.idx.row_tiles[None, :])
+
+
+@pytest.mark.parametrize("k", [1, 3, span_sweep.WORK_ITEM_TILES])
+def test_work_items_cover_every_tile_once_in_order(k):
+    """The table walks each block's tiles in the block-major order of the
+    unsplit work list, every (block, tile) once, in items of at most k
+    tiles, the items of a block consecutive and all but its last full."""
+    c = Case(3000, 2)
+    for blk_t in (c.idx.blk_t, _random_windows(c, k)):
+        items = span_sweep.work_items(blk_t, k)
+        assert items.dtype == np.int32 and items.shape[1] == 4
+        assert (items[:, 3] >= 1).all() and (items[:, 3] <= k).all()
+        assert (np.diff(items[:, 0]) >= 0).all()
+        per_block = blk_t.sum(axis=1)
+        np.testing.assert_array_equal(np.bincount(items[:, 0], items[:, 3], minlength=c.idx.nb), per_block)
+        np.testing.assert_array_equal(np.bincount(items[:, 0], minlength=c.idx.nb), -(-per_block // k))
+        last = np.r_[items[1:, 0] != items[:-1, 0], True]
+        assert (items[~last, 3] == k).all()
+        # the kernel's walk: row g's window, skipping the first tiles, then on
+        assert (items[:, 2] < blk_t[items[:, 0], items[:, 1]]).all()
+        start = torch.tensor(np.random.default_rng(0).integers(0, 3, size=blk_t.shape), dtype=torch.int32)
+        bt = torch.tensor(blk_t, dtype=torch.int32)
+        tile_off = torch.tensor((c.idx.row_pad_off // ST).astype(np.int32))
+        want = span_sweep._work_tiles(bt, start, tile_off)
+        qblk, stile, item = span_sweep._item_tiles(torch.tensor(items), bt, start, tile_off)
+        assert torch.equal(qblk, want[0]) and torch.equal(stile, want[1])
+        assert torch.equal(qblk, torch.tensor(items[:, 0], dtype=torch.int64)[item])
+
+
+@pytest.mark.parametrize("k", [1, 3, span_sweep.WORK_ITEM_TILES])
+def test_split_sweep_equals_unsplit(k):
+    """Summing each item on its own and then each block's items in item
+    order changes only the order of the sums: in f64 counts and zero
+    counts are equal and forces and losses agree to 1e-12."""
+    c = Case(2000, 2, span_scale=8.0, coincident=True)  # blocks of 8 tiles
+    s = span_sparse.build_span_structures(*c.torch_args(torch.float64), c.idx, c.opts)
+    t = c.idx.tensors(torch.device("cpu"))
+    args = (s.qrec, s.qcol, s.srec, s.scol, s.blk_t, s.start_tile, t.tile_off)
+    kw = dict(dim=2, L=1.0, rep_scale=1.0, additive=False)
+    items = torch.tensor(span_sweep.work_items(c.idx.blk_t, k))
+    assert items.shape[0] > c.idx.nb  # some block is split
+    f_s, l_s, c_s, z_s = span_sweep.span_sweep_reference(*args, **kw, items=items)
+    f_u, l_u, c_u, z_u = span_sweep.span_sweep_reference(*args, **kw)
+    assert torch.equal(c_s, c_u) and torch.equal(z_s, z_u)
+    assert int(c_u.sum()) > 0 and int(z_u.sum()) > 0
+    scale = float(f_u.abs().max())
+    np.testing.assert_allclose(f_s.numpy(), f_u.numpy(), rtol=1e-12, atol=1e-12 * scale)
+    np.testing.assert_allclose(l_s.numpy(), l_u.numpy(), rtol=1e-12, atol=1e-12 * float(l_u.abs().max()))
 
 
 def _port_sweep_args(c: Case):
@@ -328,8 +393,7 @@ def test_forces_match_jax(kw):
 
 
 def _dense_f64(c: Case, pos):
-    adj = torch.zeros((c.n, c.n), dtype=torch.uint8)
-    adj[torch.as_tensor(c.g.edge_src, dtype=torch.int64), torch.as_tensor(c.g.col_idx, dtype=torch.int64)] = 1
+    adj = adjacency_bits(torch.as_tensor(c.g.edge_src), torch.as_tensor(c.g.col_idx), c.n)
     return fused_dense_forces_reference(
         pos, torch.tensor(c.inv_w), torch.tensor(c.g.colors), adj, dim=c.d, L=1.0,
         att_scale=1.0, rep_scale=1.0, additive=c.opts.additive_weights,

@@ -142,9 +142,11 @@ class WEmbedEmbedder(SpanGrowthMixin):
     # span growth protocol: SpanGrowthMixin (core/span_driver.py)
     def _swap_index(self, index: SpanIndex) -> None:
         """Install resized windows: the skeleton's device tables are shared,
-        only the (NB, R) window widths move to the device."""
+        only the (NB, R) window widths and the sweep's work items move to
+        the device, once per window change."""
         self._index = index
         self._blk_t = index.blk_t_tensor(self.device)
+        self._items = index.work_items(self.device)
 
     def _span_structures(self):
         return build_span_structures(
@@ -156,7 +158,7 @@ class WEmbedEmbedder(SpanGrowthMixin):
         if self._span:
             return step_mod.span_step(
                 state, self._weights, self._inv_w, self._dg, self._index, self._blk_t,
-                self.opts,
+                self._items, self.opts,
             )
         return step_mod.fused_step(state, self._inv_w, self._adj, self._dg, self.opts)
 

@@ -3,8 +3,9 @@
 Counterpart of the parts of ``wembed_tpu/core/forces.py`` that the dense
 path runs (reference src/embeddingLib/src/embedder/NewWEmbedEmbedder.cpp):
 coincident-point kick directions, the centre force, gravity recentring,
-the convergence metric, and the dense u8 adjacency that the force kernel
-reads (built on the device as in ``wembed_tpu/core/step.py:287-291``).
+the convergence metric, and the bit adjacency that the force kernel reads
+(built on the device, in place of the u8 matrix of
+``wembed_tpu/core/step.py:287-291``).
 Attraction and repulsion themselves are one kernel,
 ``kernels/fused_dense.py``.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.fused_dense import adjacency_bits
 from .options import EmbedderOptions
 from .state import DeviceGraph
 
@@ -30,10 +32,9 @@ def random_unit_vectors(
 
 
 def build_dense_adjacency(dg: DeviceGraph) -> torch.Tensor:
-    """(n, n) uint8 adjacency, 1 where an edge exists, on the graph's device."""
-    adj = torch.zeros((dg.n, dg.n), dtype=torch.uint8, device=dg.colors.device)
-    adj.index_put_((dg.edge_src, dg.edge_dst), torch.ones((), dtype=torch.uint8, device=adj.device))
-    return adj
+    """(n, ceil(n / 32)) int32 bit adjacency (``kernels/fused_dense.py:
+    adjacency_bits``) of the graph's directed edges, on its device."""
+    return adjacency_bits(dg.edge_src, dg.edge_dst, dg.n)
 
 
 def centre_forces(positions: torch.Tensor, opts: EmbedderOptions) -> torch.Tensor:

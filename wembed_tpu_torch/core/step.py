@@ -113,14 +113,16 @@ def span_step(
     dg: DeviceGraph,
     index: SpanIndex,
     blk_t: torch.Tensor,
+    items: torch.Tensor,
     opts: EmbedderOptions,
 ) -> EmbedState:
     """One iteration of the span path (the ``fused_span`` branch of
     ``wembed_tpu/core/step.py:step``): structures, sweep kernel and the
-    merged attraction/correction edge pass, with the windows ``blk_t``."""
+    merged attraction/correction edge pass, with the windows ``blk_t`` and
+    their work items ``items``."""
     force, att_loss, rep_loss, rep_count, overflow, zero_count = span_fused_forces(
         state.positions, inv_w, weights, dg.colors, index, opts, state.generator,
-        blk_t=blk_t,
+        blk_t=blk_t, items=items,
     )
     return _finish_step(
         state, opts, force, zero_count, att_loss, rep_loss, rep_count, overflow

@@ -22,114 +22,191 @@
 // dist2 rounds differently and flips dead-zone pairs.  sqrtf and the
 // divisions are the IEEE ones (nvcc's default -prec-sqrt/-prec-div).
 //
-// What bounds it on an H100: per step it reads the n*n u8 adjacency
-// (100 MB at n = 10,000, 105 MB at n = 10,240), does about 30 FP32
-// operations on every pair for the distance, the masks and the tallies,
-// and an IEEE sqrt and two divisions on every active pair (at most n^2,
-// about 1e8 at n = 10,000).  The simple design reads every adjacency byte
-// exactly once (each warp loads 32 consecutive bytes of its row), stages
-// each column tile's positions, inverse weights and colours once per CTA in
-// shared memory, and pays the sqrt and divisions only on active pairs.
-// A bitmask adjacency (8x fewer bytes), cp.async/TMA staging of the next
-// tile and a wider row block per warp are left for later work.
+// The adjacency is one bit a pair: (n, ceil(n / 32)) 32-bit words, bit
+// c % 32 of word c / 32 of row v set where (v, c) is an edge
+// (kernels/fused_dense.py:adjacency_bits): 12.5 MB at n = 10,000, 32 MiB at
+// n = 16,384, so it stays in the 50 MB L2.
 //
-// Layout: one CTA owns kRows consecutive rows (kRowsPerWarp per warp) and
-// walks over all columns in tiles of kTileC.  Each row's force and
-// coincident count belong to one warp, so they are reduced with shuffles
-// and written once: no atomics, no revisits.  The two losses and the
-// candidate count go out as per-CTA partials and are summed by a second
-// kernel in a fixed order, so results are deterministic.  The count is
-// integer (the TPU kernel counts in f32, exact only below 2^24).
+// What bounds it on an H100: FP32 work.  Every pair costs the distance
+// (3d - 1 FLOP), the weight scale and the weighted distance (3) and the
+// compare: 9 FLOP at d = 2, 1e8 pairs at girg10k, 0.0135 ms at 67 TFLOP/s;
+// the bit adjacency (12.5 MB) takes 0.004 ms at 3.35 TB/s.
+//
+// Layout.  A CTA of 8 warps owns kRows = 32 consecutive rows, kRowsPerWarp
+// = 4 a warp held in every lane's registers, and sweeps one range of
+// column tiles of kTileC columns; lane l takes columns 32 i + l of each
+// tile, so one staged column serves 4 pairs.  Column tiles (positions,
+// inverse weights, colours) are double-buffered in shared memory with
+// cp.async, one barrier a tile; each lane loads one adjacency word a row
+// per 32 columns of the tile (coalesced) for the next tile while it sweeps
+// this one, and a shuffle hands each lane its word.  Pairs neither close
+// (dist2 * ws^2 <= L^2) nor neighbours, nearly all of them, leave after one
+// compare; the colour test, the tallies, the sqrt and the divisions are on
+// the rare path.  Columns past n read +inf positions and zero adjacency
+// bits, which every mask rejects.
+//
+// Whole waves: the column range of a row block is cut into S splits,
+// chosen from the SM count and the occupancy so that (row blocks x S)
+// CTAs fill the card's resident slots as evenly as can be (girg10k at
+// d = 2, 3 CTAs an SM: 313 row blocks fill 79% of the 396 slots, S = 5
+// fills 99% of four waves).  Each row's force and coincident
+// count are reduced over the warp's lanes with shuffles and written once
+// per split; a second kernel adds the splits in split order.  The two
+// losses and the candidate count go out as per-CTA partials, summed in a
+// fixed order by a third kernel, so results are deterministic.  The count
+// is integer (the TPU kernel counts in f32, exact only below 2^24).
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = 2;
+constexpr int kRowsPerWarp = 4;
 constexpr int kRows = kWarps * kRowsPerWarp;
 constexpr int kTileC = 512;
+constexpr int kTileWords = kTileC / 32;
 constexpr int kMaxDim = 8;
+constexpr int kMaxSplits = 16;
 constexpr int kFinalizeThreads = 256;
 
 struct Params {
   const float* pos;        // (n, D) row-major
   const float* invw;       // (n,)
   const int* colors;       // (n,)
-  const uint8_t* adj;      // (n, n) row-major, nonzero where an edge exists
+  const uint32_t* adj;     // (n, W) adjacency bits
   int n;
+  int W;                   // words a row, ceil(n / 32)
+  int splits;              // S: column splits a row block
   float L;
   float L2;
   float att_scale;
   float rep_scale;
   int additive;
+  float* part_force;       // (S, n, D) per-split forces
+  int* part_zero;          // (S, n) per-split coincident counts
+  double* part_loss;       // (gridDim.x, 2): attraction, repulsion
+  long long* part_count;   // (gridDim.x,)
   float* force;            // out (n, D)
   int* zero_count;         // out (n,)
-  double* part_loss;       // out (gridDim.x, 2): attraction, repulsion
-  long long* part_count;   // out (gridDim.x,)
 };
 
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 template <int D>
-__global__ void __launch_bounds__(kThreads) fused_dense_kernel(Params p) {
-  __shared__ float s_pos[D][kTileC];
-  __shared__ float s_invw[kTileC];
-  __shared__ int s_col[kTileC];
+struct Tile {
+  float pos[D][kTileC];
+  float invw[kTileC];
+  int col[kTileC];
+};
+
+// Stages columns c0 ... c0 + kTileC - 1; those past n get +inf positions.
+template <int D>
+__device__ __forceinline__ void stage_tile(const Params& p, Tile<D>& t, int c0) {
+  const int tc = min(kTileC, p.n - c0);
+  const float* src = p.pos + (size_t)c0 * D;
+  for (int e = threadIdx.x; e < kTileC * D; e += kThreads) {
+    const int i = e / D;
+    const int k = e - i * D;
+    if (i < tc) cp_async4(&t.pos[k][i], src + e);
+    else t.pos[k][i] = INFINITY;
+  }
+  for (int i = threadIdx.x; i < tc; i += kThreads) {
+    cp_async4(&t.invw[i], p.invw + c0 + i);
+    cp_async4(&t.col[i], p.colors + c0 + i);
+  }
+  cp_async_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) fused_dense_kernel(Params p) {
+  __shared__ __align__(16) Tile<D> s_tile[2];
   __shared__ double s_att[kWarps];
   __shared__ double s_rep[kWarps];
   __shared__ long long s_cnt[kWarps];
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int row0 = blockIdx.x * kRows + warp * kRowsPerWarp;
+  const int rb = blockIdx.x / p.splits;
+  const int split = blockIdx.x - rb * p.splits;
+  const int row0 = rb * kRows + warp * kRowsPerWarp;
+  const int tiles = (p.n + kTileC - 1) / kTileC;
+  const int t_lo = (int)((long long)split * tiles / p.splits);
+  const int t_hi = (int)((long long)(split + 1) * tiles / p.splits);
 
   float pr[kRowsPerWarp][D];
   float facc[kRowsPerWarp][D];
   float iwr[kRowsPerWarp];
   int cr[kRowsPerWarp];
   int zc[kRowsPerWarp];
+  uint32_t word[kRowsPerWarp];
+  // rows past n get NaN positions and no adjacency bits: every pair of
+  // theirs fails both the distance test and the neighbour test
   bool rv[kRowsPerWarp];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = row0 + r;
-    rv[r] = row < p.n;
-    const int rr = rv[r] ? row : 0;
+    rv[r] = row0 + r < p.n;
+    const int rr = rv[r] ? row0 + r : 0;
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      pr[r][k] = p.pos[(size_t)rr * D + k];
+      pr[r][k] = rv[r] ? p.pos[(size_t)rr * D + k] : NAN;
       facc[r][k] = 0.0f;
     }
     iwr[r] = p.invw[rr];
     cr[r] = p.colors[rr];
     zc[r] = 0;
   }
+  // lane l reads word l of a tile's 16 (lanes 16-31 repeat 0-15)
+  auto load_words = [&](int t) {
+    const int w = t * kTileWords + (lane % kTileWords);
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      word[r] = rv[r] && w < p.W ? __ldg(p.adj + (size_t)(row0 + r) * p.W + w) : 0u;
+    }
+  };
   double att_loss = 0.0;  // the loss terms are f32; their sums are kept in double
   double rep_loss = 0.0;
   int count = 0;
 
-  for (int c0 = 0; c0 < p.n; c0 += kTileC) {
-    const int tc = min(kTileC, p.n - c0);
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < tc; i += kThreads) {
-      const int c = c0 + i;
+  if (t_lo < t_hi) {
+    stage_tile<D>(p, s_tile[t_lo & 1], t_lo * kTileC);
+    load_words(t_lo);
+  }
+  for (int t = t_lo; t < t_hi; ++t) {
+    const Tile<D>& tile = s_tile[t & 1];
+    uint32_t cur[kRowsPerWarp];
 #pragma unroll
-      for (int k = 0; k < D; ++k) s_pos[k][i] = p.pos[(size_t)c * D + k];
-      s_invw[i] = p.invw[c];
-      s_col[i] = p.colors[c];
+    for (int r = 0; r < kRowsPerWarp; ++r) cur[r] = word[r];
+    cp_async_wait_all();
+    __syncthreads();  // tile t is in place; every thread is done with tile t - 1
+    if (t + 1 < t_hi) {
+      stage_tile<D>(p, s_tile[(t + 1) & 1], (t + 1) * kTileC);
+      load_words(t + 1);
     }
-    __syncthreads();
 
-    for (int i = lane; i < tc; i += 32) {
+#pragma unroll 2
+    for (int i = 0; i < kTileWords; ++i) {
+      const int ci = 32 * i + lane;
       float pc[D];
 #pragma unroll
-      for (int k = 0; k < D; ++k) pc[k] = s_pos[k][i];
-      const float iwc = s_invw[i];
-      const int cc = s_col[i];
+      for (int k = 0; k < D; ++k) pc[k] = tile.pos[k][ci];
+      const float iwc = tile.invw[ci];
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
-        if (!rv[r]) continue;  // uniform across the warp
-        const bool nbr = p.adj[(size_t)(row0 + r) * p.n + c0 + i] != 0;
+        const bool nbr = (__shfl_sync(0xffffffffu, cur[r], i) >> lane) & 1u;
         float diff[D];
         float dist2 = 0.0f;
 #pragma unroll
@@ -139,7 +216,10 @@ __global__ void __launch_bounds__(kThreads) fused_dense_kernel(Params p) {
         }
         const float ws = p.additive ? iwr[r] + iwc : iwr[r] * iwc;
         const float wdist2 = dist2 * (ws * ws);
-        const bool rep = !nbr && (cr[r] != cc) && (wdist2 <= p.L2);
+        const bool close = wdist2 <= p.L2;
+        if (!(close || nbr)) continue;
+        // the rare path: a repulsion candidate or a neighbour
+        const bool rep = !nbr && (cr[r] != tile.col[ci]) && close;
         const bool att = nbr && (wdist2 > p.L2);
         const bool posd = dist2 > 0.0f;
         count += rep ? 1 : 0;
@@ -183,9 +263,10 @@ __global__ void __launch_bounds__(kThreads) fused_dense_kernel(Params p) {
     for (int r = 0; r < kRowsPerWarp; ++r) {
       if (!rv[r]) continue;
       const int row = row0 + r;
+      const size_t o = (size_t)split * p.n + row;
 #pragma unroll
-      for (int k = 0; k < D; ++k) p.force[(size_t)row * D + k] = facc[r][k];
-      p.zero_count[row] = zc[r];
+      for (int k = 0; k < D; ++k) p.part_force[o * D + k] = facc[r][k];
+      p.part_zero[o] = zc[r];
     }
   }
 
@@ -214,6 +295,26 @@ __global__ void __launch_bounds__(kThreads) fused_dense_kernel(Params p) {
     p.part_loss[2 * blockIdx.x + 1] = b;
     p.part_count[blockIdx.x] = c;
   }
+}
+
+// Adds each row's splits in split order.
+template <int D>
+__global__ void __launch_bounds__(kFinalizeThreads) rows_kernel(Params p) {
+  const int row = blockIdx.x * kFinalizeThreads + threadIdx.x;
+  if (row >= p.n) return;
+  float f[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) f[k] = 0.0f;
+  int z = 0;
+  for (int s = 0; s < p.splits; ++s) {
+    const size_t o = (size_t)s * p.n + row;
+#pragma unroll
+    for (int k = 0; k < D; ++k) f[k] = f[k] + p.part_force[o * D + k];
+    z += p.part_zero[o];
+  }
+#pragma unroll
+  for (int k = 0; k < D; ++k) p.force[(size_t)row * D + k] = f[k];
+  p.zero_count[row] = z;
 }
 
 // Sums the per-CTA partials in a fixed order; the losses leave as f32.
@@ -249,17 +350,54 @@ finalize_kernel(const double* part_loss, const long long* part_count, int num_pa
   }
 }
 
+// The number of column splits S <= kMaxSplits (and <= the column tiles)
+// whose (row blocks x S) CTAs fill the resident slots best: the largest
+// mean share of a wave in use, the fewest splits on a tie.
 template <int D>
-void launch(const Params& p, int blocks, cudaStream_t stream) {
+cudaError_t choose_splits(int n, int device, int* splits) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_dense_kernel<D>, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const long long row_blocks = (n + kRows - 1) / kRows;
+  const int tiles = (n + kTileC - 1) / kTileC;
+  int best = 1;
+  double best_fill = 0.0;
+  for (int s = 1; s <= kMaxSplits && s <= tiles; ++s) {
+    const long long ctas = row_blocks * s;
+    const long long waves = (ctas + slots - 1) / slots;
+    const double fill = (double)ctas / (double)(waves * slots);
+    if (fill > best_fill + 1e-9) {
+      best_fill = fill;
+      best = s;
+    }
+  }
+  *splits = best;
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch(const Params& p, cudaStream_t stream, float* loss_out, long long* count_out) {
+  const int blocks = ((p.n + kRows - 1) / kRows) * p.splits;
   fused_dense_kernel<D><<<blocks, kThreads, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rows_kernel<D><<<(p.n + kFinalizeThreads - 1) / kFinalizeThreads, kFinalizeThreads, 0, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  finalize_kernel<<<1, kFinalizeThreads, 0, stream>>>(p.part_loss, p.part_count, blocks,
+                                                      loss_out, count_out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows per CTA: the wrapper sizes the (ceil(n / rows), 2) and
-// (ceil(n / rows),) partial buffers from it.
+// Rows per CTA: the wrapper sizes the (ceil(n / rows) * S, 2) and
+// (ceil(n / rows) * S,) partial buffers from it.
 int wembed_fused_dense_rows_per_block() { return kRows; }
 
 int wembed_fused_dense_max_dim() { return kMaxDim; }
@@ -268,51 +406,74 @@ const char* wembed_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Enqueues the force pass on `stream` and returns cudaGetLastError().
-// Allocates nothing and does not synchronise; every buffer comes from the
-// caller.  part_loss holds 2 * ceil(n / rows) doubles, part_count
-// ceil(n / rows) int64s, loss_out 2 floats, count_out one int64.
-int wembed_fused_dense_forces(const float* pos, const float* invw, const int* colors,
-                              const unsigned char* adj, int n, int dim, double L,
-                              double att_scale, double rep_scale, int additive,
-                              float* force, int* zero_count, double* part_loss,
-                              long long* part_count, float* loss_out,
-                              long long* count_out, int device, void* stream) {
+// Writes the column splits S for n vertices at dimension dim on `device`
+// to *splits and returns a cudaError_t.
+int wembed_fused_dense_splits(int n, int dim, int device, int* splits) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n < 1 || dim < 1 || dim > kMaxDim) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dim) {
+    case 1: err = choose_splits<1>(n, device, splits); break;
+    case 2: err = choose_splits<2>(n, device, splits); break;
+    case 3: err = choose_splits<3>(n, device, splits); break;
+    case 4: err = choose_splits<4>(n, device, splits); break;
+    case 5: err = choose_splits<5>(n, device, splits); break;
+    case 6: err = choose_splits<6>(n, device, splits); break;
+    case 7: err = choose_splits<7>(n, device, splits); break;
+    case 8: err = choose_splits<8>(n, device, splits); break;
+  }
+  return static_cast<int>(err);
+}
+
+// Enqueues the force pass on `stream` and returns the first launch error.
+// Allocates nothing and does not synchronise; every buffer comes from the
+// caller.  adj holds n * ceil(n / 32) words; part_force S * n * dim floats,
+// part_zero S * n ints, part_loss 2 * ceil(n / rows) * S doubles,
+// part_count ceil(n / rows) * S int64s, loss_out 2 floats, count_out one
+// int64.
+int wembed_fused_dense_forces(const float* pos, const float* invw, const int* colors,
+                              const int* adj, int n, int dim, int splits, double L,
+                              double att_scale, double rep_scale, int additive,
+                              float* part_force, int* part_zero, double* part_loss,
+                              long long* part_count, float* force, int* zero_count,
+                              float* loss_out, long long* count_out, int device,
+                              void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n < 1 || dim < 1 || dim > kMaxDim || splits < 1 || splits > kMaxSplits) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Params p;
   p.pos = pos;
   p.invw = invw;
   p.colors = colors;
-  p.adj = adj;
+  p.adj = reinterpret_cast<const uint32_t*>(adj);
   p.n = n;
+  p.W = (n + 31) / 32;
+  p.splits = splits;
   p.L = static_cast<float>(L);
   p.L2 = static_cast<float>(L * L);  // as the TPU kernel: L*L in double, compared in f32
   p.att_scale = static_cast<float>(att_scale);
   p.rep_scale = static_cast<float>(rep_scale);
   p.additive = additive;
-  p.force = force;
-  p.zero_count = zero_count;
+  p.part_force = part_force;
+  p.part_zero = part_zero;
   p.part_loss = part_loss;
   p.part_count = part_count;
-  const int blocks = (n + kRows - 1) / kRows;
+  p.force = force;
+  p.zero_count = zero_count;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dim) {
-    case 1: launch<1>(p, blocks, s); break;
-    case 2: launch<2>(p, blocks, s); break;
-    case 3: launch<3>(p, blocks, s); break;
-    case 4: launch<4>(p, blocks, s); break;
-    case 5: launch<5>(p, blocks, s); break;
-    case 6: launch<6>(p, blocks, s); break;
-    case 7: launch<7>(p, blocks, s); break;
-    case 8: launch<8>(p, blocks, s); break;
+    case 1: err = launch<1>(p, s, loss_out, count_out); break;
+    case 2: err = launch<2>(p, s, loss_out, count_out); break;
+    case 3: err = launch<3>(p, s, loss_out, count_out); break;
+    case 4: err = launch<4>(p, s, loss_out, count_out); break;
+    case 5: err = launch<5>(p, s, loss_out, count_out); break;
+    case 6: err = launch<6>(p, s, loss_out, count_out); break;
+    case 7: err = launch<7>(p, s, loss_out, count_out); break;
+    case 8: err = launch<8>(p, s, loss_out, count_out); break;
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  finalize_kernel<<<1, kFinalizeThreads, 0, s>>>(part_loss, part_count, blocks, loss_out,
-                                                  count_out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

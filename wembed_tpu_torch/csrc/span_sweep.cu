@@ -1,6 +1,6 @@
 // Span sweep kernel for Hopper (sm_90a): the repulsion candidate sweep of
-// the span path, one query block of 256 vertices against the member tiles
-// of its candidate windows.
+// the span path, query blocks of 256 vertices against the member tiles of
+// their candidate windows.
 //
 // Replaces the TPU kernel wembed_tpu/kernels/span_sparse.py:_span_kernel
 // and _span_kernel_packed (both bodies are _span_tile_body; launched by
@@ -19,36 +19,68 @@
 // L/ws is L * rawexp_q * rawexp_s with rawexp = 1/invw (multiplicative
 // weights), as the TPU kernel forms it.  The inverse distance is IEEE
 // 1.0f / sqrtf(dist2) (the TPU takes rsqrt and one Newton step); the masks
-// do not depend on it.
+// do not depend on it.  The radius test multiplies the same two f32
+// channels that the edge pass (kernels/span_sparse.py:_edge_terms)
+// multiplies, so that pass cancels exactly the neighbour pairs counted here.
 //
 // The masks must agree bit for bit with the plain PyTorch twin
 // (kernels/span_sweep.py:span_sweep_reference), so this file is compiled
 // with --fmad=false and never with --use_fast_math.
 //
-// Work layout, in place of the TPU's sequential grid over a flattened work
-// list with its `first` flags: one CTA per query block i, 256 threads, one
-// query slot a thread, its record held in registers.  The CTA walks its own
-// windows: for each row g with blk_t[i, g] > 0 it takes the tiles
-// start_tile[i, g] ... start_tile[i, g] + blk_t[i, g] - 1 of row g's padded
-// member range, stages each tile's 256 member records in shared memory and
-// loops over them.  Each slot's sums live in registers and are written
-// once: no atomics, no revisits, deterministic.  A block with no tile
-// writes zeros.
+// Work layout.  The windows of query block i are the tiles
+// start_tile[i, g] ... start_tile[i, g] + blk_t[i, g] - 1 of every row g with
+// blk_t[i, g] > 0, in block-major order.  A host-built table cuts each
+// block's tiles into WORK ITEMS of at most K tiles (kernels/span_sweep.py:
+// work_items): (block, first row g, tiles to skip in row g's window,
+// tiles).  One CTA takes one item and walks the windows from there with
+// this step's start_tile.  The heaviest weight group's blocks reach every
+// row (393 tiles at girg100k against a mean of 50), so one CTA a block ran
+// as long as its longest block; items of <= K tiles spread that work over
+// the whole card.  The same work-list form serves the cells layout and
+// the halo sweep, which walk their own tile lists.
 //
-// What bounds it on an H100: FP32 work, about 20 operations on each of
-// roughly 1e9 pairs a step at girg100k mid-run (the byte traffic is one
-// 256-member tile of (d + 3) floats per 65,536 pairs).  Known and left for
-// later work: load imbalance across blocks (girg100k has 393 CTAs on 132
-// SMs, with very uneven tile counts per block), so splitting a block's
-// tiles across CTAs, and cp.async/TMA staging of the next tile.
+// Inside an item: 256 threads, each holding QPT query slots in registers
+// and sweeping one of QPT member phases (a contiguous quarter of the tile
+// at d <= 4), so each shared-memory member read serves QPT pairs.  Member
+// records are staged as [pos(d), invw, bm2, rawexp, colour] padded to a
+// multiple of 4 floats and read as float4; the next tile is copied with
+// cp.async while the current one is swept (one barrier a tile).  The rare
+// path (valid pairs, ~1% at girg100k) holds the sqrt and the division.
+// At the end of an item the phases' sums are added in phase order through
+// shared memory and written to a per-item scratch buffer; a second kernel
+// adds each block's items in item order.  No atomics: deterministic.
+//
+// What bounds it on an H100: FP32 work.  Every pair costs d subtractions,
+// d multiplies, d - 1 adds, the radius product and its compare (3d + 1
+// FLOP); a valid pair ~14 more, with a sqrt and a division.  girg100k d=2
+// at iteration 20: 11,853 tiles = 776.8M pairs x 7 FLOP plus ~9.6M valid
+// pairs x 14, 5.6 GFLOP, 0.083 ms at 67 TFLOP/s.  The bytes (query and
+// member records, the tables) are a few MB: ~2 us at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kQ = 256;   // query slots per block (one per thread)
-constexpr int kST = 256;  // members per tile
+constexpr int kQ = 256;        // query slots per block
+constexpr int kST = 256;       // members per tile
+constexpr int kThreads = 256;  // threads per item CTA
 constexpr int kMaxDim = 8;
+
+static_assert(kThreads == kQ, "the item epilogue gives each thread one slot");
+
+template <int D>
+struct Cfg {
+  static constexpr int C = D + 3;                    // record channels in global memory
+  static constexpr int P = (D + 4 + 3) / 4 * 4;      // staged floats a member (+ colour), float4-padded
+  static constexpr int QPT = D <= 4 ? 4 : 2;         // query slots a thread
+  static constexpr int SG = kQ / QPT;                // threads sharing a member phase
+  static constexpr int MG = kThreads / SG;           // member phases
+  static constexpr int MPP = kST / MG;               // members a phase sweeps
+  static constexpr int kStage = 2 * kST * P;         // two staging buffers (floats)
+  static constexpr int kRed = MG * C * kQ;           // epilogue partials (words)
+  static constexpr int kSmem = kStage > kRed ? kStage : kRed;
+  static_assert(SG % 32 == 0, "a warp must share one member phase");
+};
 
 struct Params {
   const float* qrec;       // (nb * kQ, D + 3): pos(D), invw, lw^2, rawexp
@@ -58,87 +90,227 @@ struct Params {
   const int* blk_t;        // (nb, R) window widths in tiles
   const int* start_tile;   // (nb, R) first tile of each window, row-local
   const int* tile_off;     // (R,) first tile of each row's padded range
+  const int4* items;       // (n_items,) block, first row, tiles to skip, tiles
+  int n_items;
   int R;
   float L;
   float L2;
   float rep_scale;
   int additive;
+  float* scratch;          // (n_items, D + 3, kQ): force(D), loss, count, zero
   float* force;            // out (nb * kQ, D)
   float* loss;             // out (nb * kQ,)
   int* count;              // out (nb * kQ,)
   int* zero;               // out (nb * kQ,)
 };
 
+__device__ __forceinline__ void cp_async4(float* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copies member tile `tile` into `buf` as [pos(D), invw, bm2, rawexp, colour]
+// records of P floats.
 template <int D>
-__global__ void __launch_bounds__(kQ) span_sweep_kernel(Params p) {
-  constexpr int C = D + 3;
-  __shared__ float s_rec[kST * C];
-  __shared__ int s_col[kST];
+__device__ __forceinline__ void stage_tile(const Params& p, float* buf, int tile) {
+  using K = Cfg<D>;
+  const float* src = p.srec + (size_t)tile * kST * K::C;
+  for (int e = threadIdx.x; e < kST * K::C; e += kThreads) {
+    const int m = e / K::C;
+    cp_async4(buf + m * K::P + (e - m * K::C), src + e);
+  }
+  cp_async4(buf + threadIdx.x * K::P + K::C, p.scol + (size_t)tile * kST + threadIdx.x);
+  cp_async_commit();
+}
 
-  const int blk = blockIdx.x;
-  const size_t slot = (size_t)blk * kQ + threadIdx.x;
-  float q[C];
+// The walk over one item's tiles: row g, tile t of that row's window.
+struct Walk {
+  int blk, g, t, width, base;
+
+  __device__ void load_row(const Params& p) {
+    width = p.blk_t[blk * p.R + g];
+    base = p.tile_off[g] + p.start_tile[blk * p.R + g];
+  }
+
+  __device__ int tile() const { return base + t; }
+
+  __device__ void next(const Params& p) {
+    if (++t < width) return;
+    t = 0;
+    do {
+      ++g;
+    } while (g < p.R && p.blk_t[blk * p.R + g] <= 0);
+    if (g < p.R) load_row(p);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) span_sweep_kernel(Params p) {
+  using K = Cfg<D>;
+  constexpr int C = K::C, P = K::P, QPT = K::QPT, SG = K::SG, MPP = K::MPP;
+  __shared__ __align__(16) float smem[K::kSmem];
+
+  const int4 item = p.items[blockIdx.x];
+  const int tid = threadIdx.x;
+  const int sg = tid % SG;
+  const int mp = tid / SG;  // uniform across a warp
+
+  float q[QPT][C];
+  int qc[QPT];
 #pragma unroll
-  for (int c = 0; c < C; ++c) q[c] = p.qrec[slot * C + c];
-  const int qc = p.qcol[slot];
-
-  float acc[D];
+  for (int j = 0; j < QPT; ++j) {
+    const size_t slot = (size_t)item.x * kQ + sg + j * SG;
 #pragma unroll
-  for (int k = 0; k < D; ++k) acc[k] = 0.0f;
-  float lsum = 0.0f;
-  int cnt = 0;
-  int zc = 0;
+    for (int c = 0; c < C; ++c) q[j][c] = p.qrec[slot * C + c];
+    qc[j] = p.qcol[slot];
+  }
+  float acc[QPT][D];
+  float lsum[QPT];
+  int cnt[QPT], zc[QPT];
+#pragma unroll
+  for (int j = 0; j < QPT; ++j) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) acc[j][k] = 0.0f;
+    lsum[j] = 0.0f;
+    cnt[j] = 0;
+    zc[j] = 0;
+  }
 
-  for (int g = 0; g < p.R; ++g) {
-    const int t_len = p.blk_t[blk * p.R + g];  // uniform across the CTA
-    if (t_len <= 0) continue;
-    const int t0 = p.tile_off[g] + p.start_tile[blk * p.R + g];
-    for (int t = 0; t < t_len; ++t) {
-      const size_t base = (size_t)(t0 + t) * kST;
-      __syncthreads();  // the previous tile is consumed
-      for (int e = threadIdx.x; e < kST * C; e += kQ) s_rec[e] = p.srec[base * C + e];
-      s_col[threadIdx.x] = p.scol[base + threadIdx.x];
-      __syncthreads();
+  Walk walk{item.x, item.y, item.z, 0, 0};
+  walk.load_row(p);
+  stage_tile<D>(p, smem, walk.tile());
 
-      for (int m = 0; m < kST; ++m) {
-        const float* s = s_rec + m * C;
+  for (int i = 0; i < item.w; ++i) {
+    float* buf = smem + (i & 1) * (kST * P);
+    cp_async_wait_all();
+    __syncthreads();  // tile i is in place; every thread is done with tile i - 1
+    if (i + 1 < item.w) {
+      walk.next(p);
+      stage_tile<D>(p, smem + ((i + 1) & 1) * (kST * P), walk.tile());
+    }
+
+    const float4* rec = reinterpret_cast<const float4*>(buf + mp * MPP * P);
+#pragma unroll 2
+    for (int m = 0; m < MPP; ++m) {
+      float r[P];
+#pragma unroll
+      for (int v = 0; v < P / 4; ++v) {
+        const float4 x = rec[m * (P / 4) + v];
+        r[4 * v] = x.x;
+        r[4 * v + 1] = x.y;
+        r[4 * v + 2] = x.z;
+        r[4 * v + 3] = x.w;
+      }
+      const int sc = __float_as_int(r[C]);
+#pragma unroll
+      for (int j = 0; j < QPT; ++j) {
         float diff[D];
         float dist2 = 0.0f;
 #pragma unroll
         for (int k = 0; k < D; ++k) {
-          diff[k] = q[k] - s[k];
+          diff[k] = q[j][k] - r[k];
           dist2 = dist2 + diff[k] * diff[k];
         }
-        const bool valid = (dist2 <= q[D + 1] * s[D + 1]) && (qc != s_col[m]);
-        if (!valid) continue;
-        ++cnt;
+        if (!((dist2 <= q[j][D + 1] * r[D + 1]) && (qc[j] != sc))) continue;
+        // the rare path: a candidate
+        ++cnt[j];
         if (!(dist2 > 0.0f)) {
-          ++zc;
+          ++zc[j];
           continue;
         }
-        const float ws = p.additive ? q[D] + s[D] : q[D] * s[D];
+        const float ws = p.additive ? q[j][D] + r[D] : q[j][D] * r[D];
         if (!(dist2 * (ws * ws) <= p.L2)) continue;
         const float dist = sqrtf(dist2);
         const float inv = 1.0f / dist;
         const float coeff = p.rep_scale * ws * inv;
 #pragma unroll
-        for (int k = 0; k < D; ++k) acc[k] = acc[k] + coeff * diff[k];
-        const float l_over_ws = p.additive ? p.L / ws : (p.L * q[D + 2]) * s[D + 2];
-        lsum = lsum + (l_over_ws - dist);
+        for (int k = 0; k < D; ++k) acc[j][k] = acc[j][k] + coeff * diff[k];
+        const float l_over_ws = p.additive ? p.L / ws : (p.L * q[j][D + 2]) * r[D + 2];
+        lsum[j] = lsum[j] + (l_over_ws - dist);
       }
     }
   }
 
+  // the phases' partial sums, added in phase order; smem is free once every
+  // thread has swept the last tile
+  __syncthreads();
+  int* smem_i = reinterpret_cast<int*>(smem);
 #pragma unroll
-  for (int k = 0; k < D; ++k) p.force[slot * D + k] = acc[k];
-  p.loss[slot] = lsum;
-  p.count[slot] = cnt;
-  p.zero[slot] = zc;
+  for (int j = 0; j < QPT; ++j) {
+    const int slot = sg + j * SG;
+    const int o = mp * C * kQ + slot;
+#pragma unroll
+    for (int k = 0; k < D; ++k) smem[o + k * kQ] = acc[j][k];
+    smem[o + D * kQ] = lsum[j];
+    smem_i[o + (D + 1) * kQ] = cnt[j];
+    smem_i[o + (D + 2) * kQ] = zc[j];
+  }
+  __syncthreads();
+  float* out = p.scratch + (size_t)blockIdx.x * C * kQ + tid;
+#pragma unroll
+  for (int c = 0; c < D + 1; ++c) {
+    float s = smem[c * kQ + tid];
+#pragma unroll
+    for (int ph = 1; ph < K::MG; ++ph) s = s + smem[(ph * C + c) * kQ + tid];
+    out[c * kQ] = s;
+  }
+#pragma unroll
+  for (int c = D + 1; c < C; ++c) {
+    int s = smem_i[c * kQ + tid];
+#pragma unroll
+    for (int ph = 1; ph < K::MG; ++ph) s += smem_i[(ph * C + c) * kQ + tid];
+    out[c * kQ] = __int_as_float(s);
+  }
+}
+
+// Adds each query block's items in item order (the table is block-major);
+// a block without items gets zeros.  One CTA a block, one thread a slot.
+template <int D>
+__global__ void __launch_bounds__(kQ) span_reduce_kernel(Params p) {
+  constexpr int C = D + 3;
+  const int blk = blockIdx.x;
+  const int slot = threadIdx.x;
+  int lo = 0, hi = p.n_items;  // first item of this block
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (p.items[mid].x < blk) lo = mid + 1; else hi = mid;
+  }
+  float acc[D + 1];
+#pragma unroll
+  for (int c = 0; c <= D; ++c) acc[c] = 0.0f;
+  int cnt = 0, zc = 0;
+  for (int it = lo; it < p.n_items && p.items[it].x == blk; ++it) {
+    const float* src = p.scratch + (size_t)it * C * kQ + slot;
+#pragma unroll
+    for (int c = 0; c <= D; ++c) acc[c] = acc[c] + src[c * kQ];
+    cnt += __float_as_int(src[(D + 1) * kQ]);
+    zc += __float_as_int(src[(D + 2) * kQ]);
+  }
+  const size_t s = (size_t)blk * kQ + slot;
+#pragma unroll
+  for (int k = 0; k < D; ++k) p.force[s * D + k] = acc[k];
+  p.loss[s] = acc[D];
+  p.count[s] = cnt;
+  p.zero[s] = zc;
 }
 
 template <int D>
-void launch(const Params& p, int nb, cudaStream_t stream) {
-  span_sweep_kernel<D><<<nb, kQ, 0, stream>>>(p);
+cudaError_t launch(const Params& p, int nb, cudaStream_t stream) {
+  if (p.n_items > 0) {
+    span_sweep_kernel<D><<<p.n_items, kThreads, 0, stream>>>(p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  span_reduce_kernel<D><<<nb, kQ, 0, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -155,16 +327,20 @@ const char* wembed_span_sweep_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Enqueues the sweep on `stream` and returns cudaGetLastError().  Allocates
-// nothing and does not synchronise; every buffer comes from the caller.
+// Enqueues the sweep (the item kernel, then the per-block reduction) on
+// `stream` and returns the first launch error.  Allocates nothing and does
+// not synchronise; every buffer comes from the caller.  `scratch` holds
+// n_items * (dim + 3) * 256 words; `items` is the block-major work-item
+// table of these blk_t (kernels/span_sweep.py:work_items).
 int wembed_span_sweep(const float* qrec, const int* qcol, const float* srec,
                       const int* scol, const int* blk_t, const int* start_tile,
-                      const int* tile_off, int nb, int R, int dim, double L,
-                      double rep_scale, int additive, float* force, float* loss,
-                      int* count, int* zero, int device, void* stream) {
+                      const int* tile_off, const int* items, int n_items, int nb, int R,
+                      int dim, double L, double rep_scale, int additive, float* scratch,
+                      float* force, float* loss, int* count, int* zero, int device,
+                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (nb < 1 || R < 1 || dim < 1 || dim > kMaxDim) {
+  if (nb < 1 || R < 1 || n_items < 0 || dim < 1 || dim > kMaxDim) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -175,27 +351,30 @@ int wembed_span_sweep(const float* qrec, const int* qcol, const float* srec,
   p.blk_t = blk_t;
   p.start_tile = start_tile;
   p.tile_off = tile_off;
+  p.items = reinterpret_cast<const int4*>(items);
+  p.n_items = n_items;
   p.R = R;
   p.L = static_cast<float>(L);
   p.L2 = static_cast<float>(L * L);  // as the TPU kernel: L*L in double, compared in f32
   p.rep_scale = static_cast<float>(rep_scale);
   p.additive = additive;
+  p.scratch = scratch;
   p.force = force;
   p.loss = loss;
   p.count = count;
   p.zero = zero;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dim) {
-    case 1: launch<1>(p, nb, s); break;
-    case 2: launch<2>(p, nb, s); break;
-    case 3: launch<3>(p, nb, s); break;
-    case 4: launch<4>(p, nb, s); break;
-    case 5: launch<5>(p, nb, s); break;
-    case 6: launch<6>(p, nb, s); break;
-    case 7: launch<7>(p, nb, s); break;
-    case 8: launch<8>(p, nb, s); break;
+    case 1: err = launch<1>(p, nb, s); break;
+    case 2: err = launch<2>(p, nb, s); break;
+    case 3: err = launch<3>(p, nb, s); break;
+    case 4: err = launch<4>(p, nb, s); break;
+    case 5: err = launch<5>(p, nb, s); break;
+    case 6: err = launch<6>(p, nb, s); break;
+    case 7: err = launch<7>(p, nb, s); break;
+    case 8: err = launch<8>(p, nb, s); break;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -17,6 +17,10 @@ NewWEmbedEmbedder.cpp:321-332) and per-vertex coincident-pair counts (for
 the random kicks, NewWEmbedEmbedder.cpp:197-200,229-233).  The weighted
 distance is tested in the TPU kernel's squared form.
 
+The adjacency is one bit a pair (``adjacency_bits``): an (n, ceil(n/32))
+int32 array, bit ``c % 32`` of word ``c // 32`` of row ``v`` set where
+``(v, c)`` is an edge, 1/8 of a u8 matrix.
+
 ``fused_dense_forces`` launches the CUDA kernel ``csrc/fused_dense.cu`` for
 CUDA tensors and runs ``fused_dense_forces_reference``, the plain PyTorch
 version, for CPU tensors.  Unlike the TPU kernel, neither pads positions
@@ -34,11 +38,33 @@ from . import _build
 _REFERENCE_BLOCK = 1024  # rows per block of the plain version
 
 
+def adjacency_bits(src: torch.Tensor, dst: torch.Tensor, n: int) -> torch.Tensor:
+    """The (n, ceil(n / 32)) int32 bit adjacency of the directed pairs
+    (src, dst), on their device: bit ``dst % 32`` of word ``dst // 32`` of
+    row ``src``.  Repeated pairs set their bit once."""
+    words = -(-n // 32)
+    key = torch.unique(src.to(torch.int64) * n + dst.to(torch.int64))
+    row, col = key // n, key % n
+    bit = torch.bitwise_left_shift(torch.ones_like(col), col % 32)
+    acc = torch.zeros(n * words, dtype=torch.int64, device=key.device)
+    acc.index_add_(0, row * words + col // 32, bit)  # distinct bits: the sum is the OR
+    acc = torch.where(acc >= 2**31, acc - 2**32, acc)  # as two's-complement int32
+    return acc.to(torch.int32).view(n, words)
+
+
+def neighbour_mask(adj: torch.Tensor, rows: slice, n: int) -> torch.Tensor:
+    """(rows, n) bool: the bits of ``adj`` (``adjacency_bits``) unpacked
+    by shifts."""
+    cols = torch.arange(n, device=adj.device)
+    words = adj[rows][:, cols // 32]
+    return ((words >> (cols % 32).to(torch.int32)) & 1) != 0
+
+
 def fused_dense_forces_reference(
     pos: torch.Tensor,  # (n, d) f32 or f64
     invw: torch.Tensor,  # (n,)
     colors: torch.Tensor,  # (n,) int32
-    adj: torch.Tensor,  # (n, n) uint8
+    adj: torch.Tensor,  # (n, ceil(n / 32)) int32 adjacency bits
     *,
     dim: int,
     L: float,
@@ -65,7 +91,7 @@ def fused_dense_forces_reference(
             dist2 = dist2 + diff * diff
         iw_r, iw_c = invw[s:e, None], invw[None, :]
         ws = iw_r + iw_c if additive else iw_r * iw_c
-        nbr = adj[s:e] != 0
+        nbr = neighbour_mask(adj, slice(s, e), n)
         differ = colors[s:e, None] != colors[None, :]
         wdist2 = dist2 * (ws * ws)
         rep = ~nbr & differ & (wdist2 <= L2)
@@ -95,8 +121,10 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.wembed_fused_dense_max_dim.restype = i
     lib.wembed_cuda_error_string.argtypes = [i]
     lib.wembed_cuda_error_string.restype = ctypes.c_char_p
+    lib.wembed_fused_dense_splits.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.wembed_fused_dense_splits.restype = i
     lib.wembed_fused_dense_forces.argtypes = [
-        p, p, p, p, i, i, d, d, d, i, p, p, p, p, p, p, i, p,
+        p, p, p, p, i, i, i, d, d, d, i, p, p, p, p, p, p, p, p, i, p,
     ]
     lib.wembed_fused_dense_forces.restype = i
 
@@ -107,7 +135,7 @@ def _check(pos, invw, colors, adj, dim):
         ("pos", pos, torch.float32, (n, dim)),
         ("invw", invw, torch.float32, (n,)),
         ("colors", colors, torch.int32, (n,)),
-        ("adj", adj, torch.uint8, (n, n)),
+        ("adj", adj, torch.int32, (n, -(-n // 32))),
     ]
     for name, t, dtype, shape in expected:
         if t.device != pos.device:
@@ -153,25 +181,47 @@ def fused_dense_forces(
             f"the CUDA kernel takes d <= {lib.wembed_fused_dense_max_dim()}, got {dim}"
         )
     n, device = pos.shape[0], pos.device
-    parts = -(-n // lib.wembed_fused_dense_rows_per_block())
-    force = torch.empty((n, dim), dtype=torch.float32, device=device)
-    zero_count = torch.empty((n,), dtype=torch.int32, device=device)
+    splits = _splits(lib, n, dim, device.index)
+    parts = -(-n // lib.wembed_fused_dense_rows_per_block()) * splits
+    part_force = torch.empty((splits, n, dim), dtype=torch.float32, device=device)
+    part_zero = torch.empty((splits, n), dtype=torch.int32, device=device)
     part_loss = torch.empty((parts, 2), dtype=torch.float64, device=device)
     part_count = torch.empty((parts,), dtype=torch.int64, device=device)
+    force = torch.empty((n, dim), dtype=torch.float32, device=device)
+    zero_count = torch.empty((n,), dtype=torch.int32, device=device)
     losses = torch.empty((2,), dtype=torch.float32, device=device)
     count = torch.empty((), dtype=torch.int64, device=device)
     rc = lib.wembed_fused_dense_forces(
         pos.data_ptr(), invw.data_ptr(), colors.data_ptr(), adj.data_ptr(),
-        n, dim, float(L), float(att_scale), float(rep_scale), int(bool(additive)),
-        force.data_ptr(), zero_count.data_ptr(), part_loss.data_ptr(),
-        part_count.data_ptr(), losses.data_ptr(), count.data_ptr(),
-        device.index, torch.cuda.current_stream(device).cuda_stream,
+        n, dim, splits, float(L), float(att_scale), float(rep_scale), int(bool(additive)),
+        part_force.data_ptr(), part_zero.data_ptr(), part_loss.data_ptr(),
+        part_count.data_ptr(), force.data_ptr(), zero_count.data_ptr(), losses.data_ptr(),
+        count.data_ptr(), device.index, torch.cuda.current_stream(device).cuda_stream,
     )
-    if rc != 0:
-        msg = lib.wembed_cuda_error_string(rc).decode()
-        raise RuntimeError(f"fused_dense kernel launch failed: {msg} (cudaError {rc})")
+    _raise_on(lib, rc, "fused_dense kernel launch")
     fused_dense_forces.launches += 1
     return force, zero_count, losses[0], losses[1], count
+
+
+_split_cache: dict[tuple[int, int, int], int] = {}
+
+
+def _splits(lib, n: int, dim: int, device_index: int) -> int:
+    """The kernel's column splits for (n, dim) on the device: chosen once
+    from its SM count and occupancy (``csrc/fused_dense.cu``)."""
+    key = (n, dim, device_index)
+    if key not in _split_cache:
+        out = ctypes.c_int(0)
+        _raise_on(lib, lib.wembed_fused_dense_splits(n, dim, device_index, ctypes.byref(out)),
+                  "fused_dense split choice")
+        _split_cache[key] = out.value
+    return _split_cache[key]
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.wembed_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} failed: {msg} (cudaError {rc})")
 
 
 fused_dense_forces.launches = 0  # kernel launches; the plain version is not counted

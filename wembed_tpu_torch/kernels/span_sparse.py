@@ -16,7 +16,9 @@ projected-sort index, snn.cpp:97-160):
      lay out the member and query records, place each window by a
      searchsorted on the second axis, and report the per-window need and
      the overflow (in-radius members beyond the windows).
-  3. ``kernels/span_sweep.py``: the sweep of every window (the CUDA kernel).
+  3. ``kernels/span_sweep.py``: the sweep of every window (the CUDA kernel),
+     in work items of at most ``WORK_ITEM_TILES`` tiles that the index cuts
+     from its windows (``SpanIndex.work_items``).
   4. One pass over the directed edges: attraction, and the removal of the
      repulsion that the sweep applied to graph neighbours (the reference
      never repels neighbours, NewWEmbedEmbedder.cpp:328).  Its inclusion
@@ -25,7 +27,8 @@ projected-sort index, snn.cpp:97-160):
 
 What the TPU layout needed and the port drops: the flattened, bucketed
 work-tile list and its scalar-prefetch tables (the CUDA kernel reads the
-(NB, R) ``blk_t`` and ``start_tile`` tables directly), the dummy query
+(NB, R) ``blk_t`` and ``start_tile`` tables and a work-item table built
+once per window change), the dummy query
 block, the transposed (C, NPA) lanes, packed gathers and bitcast channels,
 and the host needs mirror (needs come from this module's build, always).
 """
@@ -40,7 +43,7 @@ import torch
 
 from ..core.candidates import _principal_axes2, doubling_weight_buckets
 from ..core.forces import random_unit_vectors
-from .span_sweep import Q as _Q, ST as _ST, span_sweep
+from .span_sweep import Q as _Q, ST as _ST, span_sweep, work_items
 
 _GROUP_MIN = 2048  # merge doubling classes until a group has this many
 _Q_SENTINEL = 1e15  # padded query position (far positive)
@@ -236,6 +239,11 @@ class SpanIndex:
 
     def blk_t_tensor(self, device: torch.device) -> torch.Tensor:
         return torch.as_tensor(np.asarray(self.blk_t, np.int32), device=device)
+
+    def work_items(self, device: torch.device) -> torch.Tensor:
+        """The sweep's (items, 4) int32 work-item table of these windows
+        (``span_sweep.work_items``) on ``device``."""
+        return torch.as_tensor(work_items(self.blk_t), device=device)
 
     def can_grow(self) -> bool:
         """False once every (query block, target row) window already
@@ -606,14 +614,19 @@ def build_span_structures(
 # -------------------------------------------------------- sweep and edges
 
 
-def _sweep(s: SpanStructures, idx: SpanIndex, opts):
+def _sweep(s: SpanStructures, idx: SpanIndex, opts, items: torch.Tensor | None = None):
     """The kernel's per-slot results back on vertices: (force (n, d),
-    rep_loss, candidate count (i64), zero_count (n,) i32)."""
-    t = idx.tensors(s.qrec.device)
+    rep_loss, candidate count (i64), zero_count (n,) i32).  ``items`` is
+    the work-item table of the windows ``s`` was built for (default: the
+    index's, copied to the device here)."""
+    device = s.qrec.device
+    t = idx.tensors(device)
+    if items is None:
+        items = idx.work_items(device)
     force_q, loss_q, count_q, zero_q = span_sweep(
         s.qrec, s.qcol, s.srec, s.scol, s.blk_t, s.start_tile, t.tile_off,
         dim=idx.d, L=opts.edge_length, rep_scale=opts.repulsion_scale,
-        additive=opts.additive_weights,
+        additive=opts.additive_weights, items=items,
     )
     return (
         force_q[s.slot_of],
@@ -694,6 +707,7 @@ def span_fused_forces(
     generator: torch.Generator,
     structures: SpanStructures | None = None,
     blk_t: torch.Tensor | None = None,
+    items: torch.Tensor | None = None,
 ):
     """The sweep plus ONE edge pass doing attraction and the neighbour
     correction together: both act along pos_dst - pos_src with a scalar
@@ -704,12 +718,13 @@ def span_fused_forces(
     get a random unit kick from ``generator`` instead
     (NewWEmbedEmbedder.cpp:197-200).
 
-    Returns (force (n, d), att_loss, rep_loss, rep_count, overflow,
-    zero_count (n,) i32)."""
+    ``blk_t`` and ``items`` (default: the index's windows and work items)
+    go together.  Returns (force (n, d), att_loss, rep_loss, rep_count,
+    overflow, zero_count (n,) i32)."""
     d = positions.shape[1]
     if structures is None:
         structures = build_span_structures(positions, inv_w, weights, colors, idx, opts, blk_t)
-    force_k, rep_loss, rep_count, zero_count = _sweep(structures, idx, opts)
+    force_k, rep_loss, rep_count, zero_count = _sweep(structures, idx, opts, items)
     t = idx.tensors(positions.device)
     e = _edge_terms(positions, inv_w, colors, structures, idx, opts)
     L = float(opts.edge_length)
@@ -745,6 +760,7 @@ def span_repulsion_forces(
     opts,
     structures: SpanStructures | None = None,
     blk_t: torch.Tensor | None = None,
+    items: torch.Tensor | None = None,
 ):
     """Repulsion alone: the sweep and the O(E) neighbour correction.
 
@@ -753,7 +769,7 @@ def span_repulsion_forces(
     the reference's per-class candidate count when no window truncates."""
     if structures is None:
         structures = build_span_structures(positions, inv_w, weights, colors, idx, opts, blk_t)
-    force_k, loss, count, zero_count = _sweep(structures, idx, opts)
+    force_k, loss, count, zero_count = _sweep(structures, idx, opts, items)
     t = idx.tensors(positions.device)
     e = _edge_terms(positions, inv_w, colors, structures, idx, opts)
     dist = torch.sqrt(e.dist2)

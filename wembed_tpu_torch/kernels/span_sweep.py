@@ -23,6 +23,12 @@ Record layout (row-major, ``d + 3`` channels): queries
 with int32 colours beside them; padding slots carry far sentinel positions
 and never pass the radius test.
 
+Work items: ``work_items`` cuts every block's tiles, in block-major order,
+into items of at most ``WORK_ITEM_TILES`` tiles, ``(block, first row g,
+tiles to skip in row g's window, tiles)``.  The table depends only on
+``blk_t``, so it is built on the host once per window change.  The kernel
+runs one CTA an item and adds each block's items in item order.
+
 ``span_sweep`` launches ``csrc/span_sweep.cu`` for CUDA tensors (f32 only)
 and runs ``span_sweep_reference``, the plain PyTorch version, for CPU
 tensors (f32 or f64).
@@ -32,12 +38,14 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
 
 Q = 256  # query slots per block
 ST = 256  # members per tile
+WORK_ITEM_TILES = 4  # K: tiles of the longest work item (chosen on an H100, PERF.md)
 _REFERENCE_PAIRS = 1 << 22  # (tile, slot, member) elements per chunk of the plain version
 
 
@@ -54,6 +62,44 @@ def _work_tiles(blk_t: torch.Tensor, start_tile: torch.Tensor, tile_off: torch.T
     return qblk, stile
 
 
+def work_items(blk_t: np.ndarray, k: int = WORK_ITEM_TILES) -> np.ndarray:
+    """The (items, 4) int32 work-item table of the windows ``blk_t`` (NB, R):
+    each block's tiles in block-major order (rows ascending, tiles within a
+    window ascending) cut into runs of at most ``k`` tiles, each run as
+    (block, first row g, tiles to skip in row g's window, tiles).  Items of
+    one block are consecutive; a block without tiles has none."""
+    if k < 1:
+        raise ValueError(f"work items need k >= 1, got {k}")
+    blk_t = np.asarray(blk_t, np.int64)
+    nb, rr = blk_t.shape
+    flat = blk_t.reshape(-1)
+    pair = np.repeat(np.arange(nb * rr), flat)  # (block, row) of every tile
+    within = np.arange(pair.shape[0]) - (np.cumsum(flat) - flat)[pair]
+    block = pair // rr
+    per_block = blk_t.sum(axis=1)
+    in_block = np.arange(pair.shape[0]) - (np.cumsum(per_block) - per_block)[block]
+    first = np.flatnonzero(in_block % k == 0)
+    b = block[first]
+    return np.stack(
+        [b, pair[first] % rr, within[first], np.minimum(k, per_block[b] - in_block[first])],
+        axis=1,
+    ).astype(np.int32)
+
+
+def _item_tiles(items, blk_t, start_tile, tile_off):
+    """(query block, global member tile, item) of every tile of the work
+    items, in item order, found from each item's (row, skip) fields."""
+    qblk, stile = _work_tiles(blk_t, start_tile, tile_off)
+    items = items.to(torch.int64)
+    flat = blk_t.reshape(-1).to(torch.int64)
+    first = torch.cumsum(flat, 0) - flat  # work-list position of each window's first tile
+    pos = first[items[:, 0] * blk_t.shape[1] + items[:, 1]] + items[:, 2]
+    item = torch.repeat_interleave(torch.arange(items.shape[0], device=items.device), items[:, 3])
+    offset = torch.cumsum(items[:, 3], 0) - items[:, 3]
+    tile = pos[item] + torch.arange(item.shape[0], device=items.device) - offset[item]
+    return qblk[tile], stile[tile], item
+
+
 def span_sweep_reference(
     qrec: torch.Tensor,  # (nb * Q, d + 3)
     qcol: torch.Tensor,  # (nb * Q,) int32
@@ -67,25 +113,34 @@ def span_sweep_reference(
     L: float,
     rep_scale: float,
     additive: bool,
+    items: torch.Tensor | None = None,  # (items, 4) int32 work items of blk_t
 ):
     """Plain PyTorch version of the kernel, vectorised over chunks of work
     tiles.  Same outputs as ``span_sweep``: (force (nb*Q, d), loss (nb*Q,),
-    count (nb*Q,) int32, zero (nb*Q,) int32)."""
+    count (nb*Q,) int32, zero (nb*Q,) int32).  With ``items`` it runs the
+    kernel's split: each item's tiles summed on their own, then each
+    block's items added in item order; without, each block's tiles at
+    once."""
     d = dim
     nq, c = qrec.shape
     nb = nq // Q
     dtype, device = qrec.dtype, qrec.device
-    qblk, stile = _work_tiles(blk_t, start_tile, tile_off)
+    if items is None:
+        qblk, stile = _work_tiles(blk_t, start_tile, tile_off)
+        dest, n_dest = qblk, nb
+    else:
+        qblk, stile, dest = _item_tiles(items, blk_t, start_tile, tile_off)
+        n_dest = items.shape[0]
     q3, qc3 = qrec.view(nb, Q, c), qcol.view(nb, Q)
     s3, sc3 = srec.view(-1, ST, c), scol.view(-1, ST)
-    force = torch.zeros((nb, Q, d), dtype=dtype, device=device)
-    loss = torch.zeros((nb, Q), dtype=dtype, device=device)
-    count = torch.zeros((nb, Q), dtype=torch.int64, device=device)
-    zero = torch.zeros((nb, Q), dtype=torch.int64, device=device)
+    force = torch.zeros((n_dest, Q, d), dtype=dtype, device=device)
+    loss = torch.zeros((n_dest, Q), dtype=dtype, device=device)
+    count = torch.zeros((n_dest, Q), dtype=torch.int64, device=device)
+    zero = torch.zeros((n_dest, Q), dtype=torch.int64, device=device)
     L2 = float(L) * float(L)
     chunk = max(1, _REFERENCE_PAIRS // (Q * ST))
     for lo in range(0, qblk.shape[0], chunk):
-        qb, st = qblk[lo : lo + chunk], stile[lo : lo + chunk]
+        qb, st, to = qblk[lo : lo + chunk], stile[lo : lo + chunk], dest[lo : lo + chunk]
         q, s = q3[qb], s3[st]  # (k, Q, c), (k, ST, c)
         diffs = [q[:, :, k, None] - s[:, None, :, k] for k in range(d)]
         dist2 = torch.zeros_like(diffs[0])
@@ -101,10 +156,17 @@ def span_sweep_reference(
         dist = torch.sqrt(dist2)
         coeff = torch.where(active, rep_scale * ws * (1.0 / dist), 0.0)
         l_over_ws = L / ws if additive else (L * q[:, :, d + 2, None]) * s[:, None, :, d + 2]
-        force.index_add_(0, qb, torch.stack([torch.sum(coeff * diff, dim=2) for diff in diffs], dim=2))
-        loss.index_add_(0, qb, torch.sum(torch.where(active, l_over_ws - dist, 0.0), dim=2))
-        count.index_add_(0, qb, torch.sum(valid, dim=2))
-        zero.index_add_(0, qb, torch.sum(valid & ~posd, dim=2))
+        force.index_add_(0, to, torch.stack([torch.sum(coeff * diff, dim=2) for diff in diffs], dim=2))
+        loss.index_add_(0, to, torch.sum(torch.where(active, l_over_ws - dist, 0.0), dim=2))
+        count.index_add_(0, to, torch.sum(valid, dim=2))
+        zero.index_add_(0, to, torch.sum(valid & ~posd, dim=2))
+    if items is not None:  # each block's items, in item order
+        block = items[:, 0].to(torch.int64)
+        sums = (force, loss, count, zero)
+        force, loss, count, zero = (
+            torch.zeros((nb, *t.shape[1:]), dtype=t.dtype, device=device).index_add_(0, block, t)
+            for t in sums
+        )
     return (
         force.reshape(nq, d),
         loss.reshape(nq),
@@ -120,13 +182,15 @@ def _configure(lib: ctypes.CDLL) -> None:
         getattr(lib, name).restype = i
     lib.wembed_span_sweep_error_string.argtypes = [i]
     lib.wembed_span_sweep_error_string.restype = ctypes.c_char_p
-    lib.wembed_span_sweep.argtypes = [p, p, p, p, p, p, p, i, i, i, d, d, i, p, p, p, p, i, p]
+    lib.wembed_span_sweep.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, d, d, i, p, p, p, p, p, i, p]
     lib.wembed_span_sweep.restype = i
 
 
-def _check(qrec, qcol, srec, scol, blk_t, start_tile, tile_off, dim):
+def _check(qrec, qcol, srec, scol, blk_t, start_tile, tile_off, items, dim):
     nq, npa = qrec.shape[0], srec.shape[0]
     nb, rr = blk_t.shape
+    if items is None:
+        raise ValueError("the CUDA kernel needs the work-item table (items=)")
     expected = [
         ("qrec", qrec, torch.float32, (nq, dim + 3)),
         ("qcol", qcol, torch.int32, (nq,)),
@@ -135,6 +199,7 @@ def _check(qrec, qcol, srec, scol, blk_t, start_tile, tile_off, dim):
         ("blk_t", blk_t, torch.int32, (nb, rr)),
         ("start_tile", start_tile, torch.int32, (nb, rr)),
         ("tile_off", tile_off, torch.int32, (rr,)),
+        ("items", items, torch.int32, (items.shape[0], 4)),
     ]
     for name, t, dtype, shape in expected:
         if t.device != qrec.device:
@@ -150,6 +215,8 @@ def _check(qrec, qcol, srec, scol, blk_t, start_tile, tile_off, dim):
             f"the CUDA kernel takes nb * {Q} query slots and whole {ST}-member tiles, "
             f"got {nq} slots for {nb} blocks and {npa} members"
         )
+    if items.data_ptr() % 16 != 0:
+        raise ValueError("the CUDA kernel reads items as int4: its data must be 16-byte aligned")
 
 
 def span_sweep(
@@ -165,19 +232,22 @@ def span_sweep(
     L: float,
     rep_scale: float,
     additive: bool,
+    items: torch.Tensor | None = None,
 ):
     """The sweep of one step.  Returns (force (nb*Q, d), loss (nb*Q,), count
     (nb*Q,) int32, zero (nb*Q,) int32) per query slot.  CPU tensors go
     through the plain version; CUDA tensors (f32 only, d <= 8) through the
-    kernel, on the current stream, without synchronising.  The caller keeps
-    the windows inside each row (start_tile + blk_t <= the row's tiles)."""
-    kwargs = dict(dim=dim, L=L, rep_scale=rep_scale, additive=additive)
+    kernel, on the current stream, without synchronising, which needs
+    ``items``, the ``work_items`` table of these ``blk_t`` on the device.
+    The caller keeps the windows inside each row (start_tile + blk_t <= the
+    row's tiles)."""
+    kwargs = dict(dim=dim, L=L, rep_scale=rep_scale, additive=additive, items=items)
     args = (qrec, qcol, srec, scol, blk_t, start_tile, tile_off)
     if qrec.device.type == "cpu":
         return span_sweep_reference(*args, **kwargs)
     if qrec.device.type != "cuda":
         raise ValueError(f"no span_sweep kernel for device {qrec.device}")
-    _check(*args, dim)
+    _check(*args, items, dim)
     lib = _build.load("span_sweep", _configure)
     if (lib.wembed_span_sweep_block(), lib.wembed_span_sweep_tile()) != (Q, ST):
         raise RuntimeError("csrc/span_sweep.cu and kernels/span_sweep.py disagree on Q or ST")
@@ -185,14 +255,17 @@ def span_sweep(
         raise ValueError(f"the CUDA kernel takes d <= {lib.wembed_span_sweep_max_dim()}, got {dim}")
     nq, device = qrec.shape[0], qrec.device
     nb, rr = blk_t.shape
+    n_items = items.shape[0]
+    scratch = torch.empty((n_items, dim + 3, Q), dtype=torch.float32, device=device)
     force = torch.empty((nq, dim), dtype=torch.float32, device=device)
     loss = torch.empty((nq,), dtype=torch.float32, device=device)
     count = torch.empty((nq,), dtype=torch.int32, device=device)
     zero = torch.empty((nq,), dtype=torch.int32, device=device)
     rc = lib.wembed_span_sweep(
-        *(t.data_ptr() for t in args), nb, rr, dim, float(L), float(rep_scale),
-        int(bool(additive)), force.data_ptr(), loss.data_ptr(), count.data_ptr(),
-        zero.data_ptr(), device.index, torch.cuda.current_stream(device).cuda_stream,
+        *(t.data_ptr() for t in args), items.data_ptr(), n_items, nb, rr, dim, float(L),
+        float(rep_scale), int(bool(additive)), scratch.data_ptr(), force.data_ptr(),
+        loss.data_ptr(), count.data_ptr(), zero.data_ptr(), device.index,
+        torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
         msg = lib.wembed_span_sweep_error_string(rc).decode()
