@@ -7,44 +7,61 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. a CUDA card is present; print torch/CUDA versions, the card's name and
-     power limit; start making girg100k (phase 6) in a subprocess;
+     power limit; start making girg100k (phase 7) in a subprocess;
   2. build the CUDA kernels from ``wembed_tpu_torch/csrc`` (one nvcc per
-     source, started together), print their registers and spills, and
-     fail on any spill at d <= 4;
+     source) and the layered path's host label propagation (g++), all
+     started together; print the kernels' registers and spills, and fail
+     on any spill at d <= 4;
   3. hold the fused force kernel against its plain PyTorch version on the
      card: girg10k d=2 with degree weights at positions after 20 steps of
      a seeded run (timed), n = 16384, the largest dense size (timed),
      n = 1100 (a shape whose last columns the TPU kernel's grid skips),
      additive weights, a bipartite colouring and coincident points, at
-     d = 2, 3, 4 and 8;
+     d = 2, 3, 4 and 8; and at the sizes of girg100k's coarse layers
+     (n = 4, 22, 133, 713, 3699, d=2, degree weights on a random graph);
   4. the dense main path: ``wembed_tpu_torch.api``, girg10k, d=2, seed 1,
      ``calculateEmbedding()``, which must converge before 1000 iterations,
      launch the kernel once per iteration, keep every state tensor finite
-     and reach a total loss within 1.15x the C++ reference's; a profile of
-     20 further steps; seeds 2-4 and seed 1 with one column split in the
-     kernel, each within the same limits;
+     and reach a total loss within 1.15x the C++ reference's; its MAP,
+     constructDeg and F1 (1000 node samples ranked on the card), MAP at
+     least 0.70; a profile of 20 further steps; seeds 2-4 and seed 1 with
+     one column split in the kernel, each within the same limits (MAP
+     included);
   5. the ``embed`` CLI as a subprocess, which must write a 10,000-row CSV;
-  6. girg100k d=2 from the port's ``generate`` CLI (cached in
+  6. the layered CLIs on girg10k: ``embed --layered`` must write 10,000
+     rows and ``evaluate`` on them print the evaluator's header and one row
+     of five finite metrics; then a layered API run with reference
+     expansion, which must converge with finite state after a first
+     expanded step with coincident pairs;
+  7. girg100k d=2 from the port's ``generate`` CLI (cached in
      ``build/graphs/``), checked by md5 and by n and m against
      ``baselines/reference_measured.json``;
-  7. hold the span sweep kernel against its plain version on the card:
+  8. hold the span sweep kernel against its plain version on the card:
      girg100k d=2 at positions after 20 steps of a seeded run (timed; then
      with one tile a work item, and timed at other item sizes), girg100k
      d=4 after 20 steps (timed), and synthetic cases with additive weights
      at d=3, a bipartite colouring, coincident points at d=4 and starved
      windows;
-  8. the span main path: the API on girg100k, d=2, seed 1,
+  9. the span main path: the API on girg100k, d=2, seed 1,
      ``calculateEmbedding()``: below 1000 iterations, one sweep launch per
      iteration, final overflow 0, every state tensor finite, total loss
-     within 1.15x the C++ reference's; then a breakdown of a step at the
-     converged positions by CUDA events (with the sweep at other item
-     sizes) and a profile of 20 further steps.
+     within 1.15x the C++ reference's, MAP at least 0.9x the C++
+     reference's; then a breakdown of a step at the converged positions by
+     CUDA events (with the sweep at other item sizes) and a profile of 20
+     further steps;
+ 10. the layered main path: the API with ``layeredEmbedding=True`` on
+     girg100k, d=2, seed 1: a ``layer`` line a layer, every layer below
+     1000 iterations, the dense kernel launched once per iteration of the
+     dense layers and the sweep once per iteration of the span layers,
+     final overflow 0, every state tensor finite, MAP at least 0.74 and
+     above the flat run's; then the ranking on the card against the host
+     loop on 128 pinned vertices.
 
 Every kernel comparison also launches the kernel twice on the same inputs
 and fails unless the two outputs are bitwise equal.  The line before the
 last is a JSON summary of the kernels (time, bound, launches on the main
-paths); the last line is ``{"ok": true, "device": {...}}``.  Imports
-nothing of JAX.
+paths, flat and layered); the last line is ``{"ok": true, "device":
+{...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -63,8 +80,10 @@ GIRG10K = REPO / "assets" / "girg10k.edg"
 GIRG100K = REPO / "build" / "graphs" / "girg100k_d2.edg"
 GIRG100K_FLAGS = ["-n", "100000", "-d", "2", "-s", "1", "--avg-deg", "15", "--ple", "2.5"]
 GIRG100K_MD5 = "2da04136ab08cc3830049310680a0815"  # the JAX package's generator, same flags
+GIRG100K_LAYERS = (4, 22, 133, 713, 3699)  # its dense coarse layers (seed 1, default partitioner)
 REFERENCE = REPO / "baselines" / "reference_measured.json"
 KERNELS = ("fused_dense", "span_sweep")
+HOST_SOURCES = ("labelprop",)  # host C++ of the layered path, built with g++ beside the kernels
 LOSS_FACTOR = 1.15  # total loss may exceed the C++ reference's by at most this
 FORCE_RTOL = 1e-5  # summation order differs between the kernel and the plain version
 FORCE_ATOL = 1e-5  # times max|force|
@@ -74,6 +93,17 @@ F32_FLOPS = 67e12  # H100 SXM FP32 peak outside the tensor cores (data sheet)
 HBM_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 RARE_FLOP = 14  # FLOP of a candidate or neighbour pair beyond the common path
 SPILL_FREE_DIMS = (1, 2, 3, 4)
+NODE_SAMPLES = 1000  # the evaluator's default sample of ranked vertices
+MAP_FLAT_GIRG10K = 0.70
+MAP_FACTOR = 0.9  # MAP at least this times the target's
+MAP_LAYERED_TARGET = 0.823  # the JAX package's layered girg100k d=2 (baselines/tpu_measured.json)
+PINNED = 128
+EVAL_TOL = 1e-12
+EVALUATE_HEADER = (  # the evaluator CLI's columns, as wembed_tpu/cli/evaluate.py prints them
+    "edge-list-path,embedding-path,emb-type,seed,edge-sample-factor,node-sample-percent,"
+    "num_nodes,num_edges,constructDeg,MAP,precision,recall,edgeF1"
+)
+STATE_TENSORS = ("positions", "adam_m", "adam_v", "attract_loss", "repel_loss", "pos_change")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -210,6 +240,32 @@ def girg10k_case():
     )
 
 
+def degree_case(n, seed):
+    """Inputs for the kernel comparison at a coarse layer's size: a random
+    graph with rescaled degree weights at d=2, built as the embedder builds
+    its own (CUDA tensors)."""
+    import numpy as np
+    import torch
+
+    from wembed_tpu_torch.core import EmbedderOptions, forces
+    from wembed_tpu_torch.core.state import DeviceGraph
+    from wembed_tpu_torch.core.weights import initial_weights, inv_exp_weights
+    from wembed_tpu_torch.graphs import from_edges
+
+    rng = np.random.default_rng(seed)
+    g = from_edges(rng.integers(0, n, size=(4 * n, 2)), num_vertices=n)
+    w = initial_weights(g, EmbedderOptions(embedding_dimension=2))
+    dev = torch.device("cuda")
+    dg = DeviceGraph.build(g, dev)
+    return dict(
+        pos=torch.tensor(rng.uniform(0.0, n ** 0.5, size=(n, 2)), dtype=torch.float32, device=dev),
+        invw=torch.tensor(inv_exp_weights(w, 2), dtype=torch.float32, device=dev),
+        colors=dg.colors,
+        adj=forces.build_dense_adjacency(dg),
+        additive=False, edges=g.num_directed_edges,
+    )
+
+
 def compare(name: str, case: dict, timed: bool) -> dict:
     """Kernel against the plain version on the same CUDA tensors."""
     import torch
@@ -246,6 +302,185 @@ def compare(name: str, case: dict, timed: bool) -> dict:
     for label, k, p in (("att", a_k, a_p), ("rep", r_k, r_p)):
         k, p = float(k), float(p)
         check(abs(k - p) <= LOSS_RTOL * abs(p), f"{name}: {label} loss {k} != {p}")
+    return row
+
+
+def evaluate_embedding(csr, coords, weights, seed: int = 1) -> dict:
+    """MAP and constructDeg (NODE_SAMPLES vertices ranked on the card) and
+    edge-detection precision, recall and F1 (host sampling) of a weighted
+    embedding, with the evaluator CLI's random stream for ``--seed``."""
+    import numpy as np
+    import torch
+
+    from wembed_tpu_torch.eval import edge_detection_metrics, reconstruction_metrics
+    from wembed_tpu_torch.eval.spaces import WeightedGeometric
+
+    rng = np.random.default_rng(seed)
+    space = WeightedGeometric(coords, weights=weights)
+    t0 = time.perf_counter()
+    out = reconstruction_metrics(csr, space, NODE_SAMPLES, rng, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out.update(edge_detection_metrics(csr, space, 10.0, rng))
+    out.update(ranking_s=t1 - t0, edge_detection_s=time.perf_counter() - t1)
+    return out
+
+
+def check_finite(state, what: str) -> None:
+    import torch
+
+    for name in STATE_TENSORS:
+        check(bool(torch.isfinite(getattr(state, name)).all()), f"non-finite {name} {what}")
+
+
+def layered_clis(tmp: Path) -> dict:
+    """``embed --layered`` on girg10k, then ``evaluate`` on its CSV, each a
+    subprocess on the card."""
+    import math
+
+    out = tmp / "girg10k_layered.csv"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "wembed_tpu_torch.cli.embed", "-i", str(GIRG10K), "-o", str(out),
+         "--seed", "1", "--dim", "2", "--layered"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    embed_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"layered CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+    rows = out.read_text().splitlines() if out.exists() else []
+    check(len(rows) == 10000, f"layered CLI wrote {len(rows)} rows")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "wembed_tpu_torch.cli.evaluate", "-g", str(GIRG10K), "-e", str(out),
+         "--seed", "1"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    evaluate_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"evaluate CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    check(len(lines) == 2 and lines[0] == EVALUATE_HEADER, f"evaluate CLI printed {lines!r}")
+    values = lines[1].split(",")
+    metrics = dict(zip(EVALUATE_HEADER.split(",")[-5:], (float(v) for v in values[-5:])))
+    check(all(math.isfinite(v) for v in metrics.values()), f"evaluate CLI metrics {metrics}")
+    return dict(rows=len(rows), embed_s=embed_s, evaluate_s=evaluate_s, **metrics)
+
+
+def reference_expansion_run(graph) -> dict:
+    """The layered API run with reference expansion (children on their
+    parents): it must converge with finite state, and the first expanded
+    layer must start with coincident pairs, which only the kicks separate."""
+    from wembed_tpu_torch import api
+    from wembed_tpu_torch.core import WEmbedEmbedder
+    from wembed_tpu_torch.kernels.fused_dense import fused_dense_forces_reference
+
+    starts = []
+
+    def factory(layer_graph, opts, **kw):
+        emb = WEmbedEmbedder(layer_graph, opts, **kw)
+        check(emb.path == "dense", "girg10k's layers all take the dense path")
+        zero = fused_dense_forces_reference(
+            emb.state.positions, emb._inv_w, emb._dg.colors, emb._adj, dim=2, L=opts.edge_length,
+            att_scale=opts.attraction_scale, rep_scale=opts.repulsion_scale, additive=False,
+        )[1]
+        starts.append(dict(n=layer_graph.num_vertices, coincident=int(zero.sum())))
+        return emb
+
+    api.setSeed(1)
+    embedder = api.createEmbedder(
+        graph, api.Options(embeddingDimension=2, layeredEmbedding=True, expansionMode="reference")
+    )
+    embedder.impl.embedder_factory = factory  # every layer after the coarsest
+    t0 = time.perf_counter()
+    embedder.calculateEmbedding()
+    wall = time.perf_counter() - t0
+    impl = embedder.impl
+    iterations = [r.iterations for r in impl.layer_records]
+    row = dict(layers=[r.n for r in impl.layer_records], iterations=iterations, wall_s=wall,
+               first_expanded=starts[0] if starts else None, total_loss=embedder.getLoss().total)
+    print("layered_reference " + json.dumps(row))
+    check(embedder.isFinished(), "reference expansion: not finished")
+    check(all(0 < it < 1000 for it in iterations), f"reference expansion: iterations {iterations}")
+    check_finite(impl.state, "after reference expansion")
+    check(bool(starts) and starts[0]["coincident"] > 0,
+          f"reference expansion: no coincident pair at the first expanded step ({starts[:1]})")
+    return row
+
+
+def layered_main_path(graph, flat_map: float) -> dict:
+    """The layered API run on girg100k with both kernels' counts set to 0
+    just before ``calculateEmbedding()`` and read just after."""
+    import dataclasses
+
+    import torch
+
+    from wembed_tpu_torch import api
+    from wembed_tpu_torch.kernels import fused_dense, span_sweep
+
+    api.setSeed(1)
+    torch.cuda.reset_peak_memory_stats()  # each layer records the peak since here
+    t0 = time.perf_counter()
+    embedder = api.createEmbedder(graph, api.Options(embeddingDimension=2, layeredEmbedding=True))
+    torch.cuda.synchronize()
+    create_s = time.perf_counter() - t0
+    impl = embedder.impl
+    fused_dense.fused_dense_forces.launches = 0
+    span_sweep.span_sweep.launches = 0
+    t0 = time.perf_counter()
+    embedder.calculateEmbedding()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fused_dense=fused_dense.fused_dense_forces.launches,
+                    span_sweep=span_sweep.span_sweep.launches)
+    records = impl.layer_records
+    for r in records:
+        print("layer " + json.dumps(dataclasses.asdict(r)))
+    coords, weights = embedder.impl.get_coordinates(), embedder.impl.get_weights()
+    quality = evaluate_embedding(graph.csr, coords, weights)
+    row = dict(
+        graph="girg100k", n=graph.getNumVertices(), dim=2, seed=1, layers=len(records),
+        hierarchy_s=impl.hierarchy_seconds, create_s=create_s, wall_s=wall,
+        construct_s=sum(r.construct_s for r in records), loop_s=sum(r.loop_s for r in records),
+        iterations=impl.iteration, launches=launches, total_loss=embedder.getLoss().total,
+        peak_mem_bytes=max(r.peak_mem_bytes for r in records), flat_map=flat_map, **quality,
+    )
+    print("main_path_layered " + json.dumps(row))
+    for r in records:
+        check(0 < r.iterations < 1000, f"layer n={r.n}: {r.iterations} iterations")
+        check(r.final_overflow == 0, f"layer n={r.n}: final overflow {r.final_overflow}")
+    for kernel, path in (("fused_dense", "dense"), ("span_sweep", "span")):
+        want = sum(r.iterations for r in records if r.path == path)
+        check(launches[kernel] == want > 0,
+              f"{kernel}: {launches[kernel]} launches for {want} iterations of the {path} layers")
+    check(impl.iteration == sum(r.iterations for r in records), "layered iterations do not add up")
+    check_finite(impl.state, "on the layered path")
+    target = MAP_FACTOR * MAP_LAYERED_TARGET
+    check(row["MAP"] >= target, f"layered MAP {row['MAP']} < {target}")
+    check(row["MAP"] > flat_map, f"layered MAP {row['MAP']} <= the flat run's {flat_map}")
+    return dict(row, embedding=(coords, weights))
+
+
+def pinned_ranking(csr, coords, weights) -> dict:
+    """The ranking on the card against the host loop on PINNED vertices:
+    the same ids and degrees, precisions within EVAL_TOL."""
+    import numpy as np
+
+    from wembed_tpu_torch.eval import sample_node_entries
+    from wembed_tpu_torch.eval.device import sample_node_entries_device
+    from wembed_tpu_torch.eval.spaces import WeightedGeometric
+
+    ids = np.random.default_rng(7).permutation(csr.num_vertices)[:PINNED]
+    space = WeightedGeometric(coords, weights=weights)
+    t0 = time.perf_counter()
+    dev = sample_node_entries_device(csr, space, 0, node_ids=ids, device="cuda")
+    t1 = time.perf_counter()
+    host = sample_node_entries(csr, space, 0, node_ids=ids)
+    t2 = time.perf_counter()
+    err = max(max(abs(a.deg_precision - b.deg_precision), abs(a.average_precision - b.average_precision))
+              for a, b in zip(dev, host))
+    row = dict(ids=PINNED, max_abs_err=err, device_s=t1 - t0, host_s=t2 - t1)
+    print("pinned_ranking " + json.dumps(row))
+    check([(e.v, e.deg) for e in dev] == [(e.v, e.deg) for e in host], "pinned ranking: ids or degrees differ")
+    check(err <= EVAL_TOL, f"pinned ranking: precisions differ by {err}")
     return row
 
 
@@ -496,9 +731,10 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     from wembed_tpu_torch import api
     from wembed_tpu_torch.kernels import _build, fused_dense, span_sweep
 
-    # ---- phase 2: build, one nvcc per source, all started together
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        infos = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    # ---- phase 2: build, one compiler per source, all started together
+    sources = KERNELS + HOST_SOURCES
+    with ThreadPoolExecutor(len(sources)) as pool:
+        infos = dict(zip(sources, pool.map(_build.build, sources)))
     for name, info in infos.items():
         print(f"build {name}: {info.seconds:.3f} s -> {info.path.name}")
         for line in info.log.splitlines():
@@ -516,6 +752,8 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     compare("n1000_bipartite_d3", synthetic_case(1000, 3, bipartite=True, seed=3), False)
     coinc = compare("n1000_coincident_d4", synthetic_case(1000, 4, coincident=True, seed=4), False)
     check(coinc["zero_sum"][0] > 0, "the coincident case produced no coincident pairs")
+    for i, n in enumerate(GIRG100K_LAYERS):  # the layered path's dense sizes
+        compare(f"n{n}_degree_d2", degree_case(n, seed=20 + i), timed=True)
 
     # ---- phase 4: the dense main path
     references = json.loads(REFERENCE.read_text())["configs"]
@@ -547,9 +785,11 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     )
     check(0 < iterations < 1000, f"did not converge before the cap ({iterations} iterations)")
     check(launches == iterations, f"{launches} kernel launches for {iterations} iterations")
-    for name in ("positions", "adam_m", "adam_v", "attract_loss", "repel_loss", "pos_change"):
-        check(bool(torch.isfinite(getattr(state, name)).all()), f"non-finite {name}")
+    check_finite(state, "on the dense path")
     check(loss.total <= LOSS_FACTOR * ref_total, f"total loss {loss.total} > {LOSS_FACTOR} x {ref_total}")
+    quality = evaluate_embedding(graph.csr, embedder.impl.get_coordinates(), embedder.impl.get_weights())
+    print("quality_girg10k " + json.dumps(quality))
+    check(quality["MAP"] >= MAP_FLAT_GIRG10K, f"girg10k MAP {quality['MAP']} < {MAP_FLAT_GIRG10K}")
     print("profile_dense " + json.dumps(profile_steps(embedder.impl)))
     del embedder, state
     # the f32 trajectory, hence the final loss, moves with the seed and with
@@ -567,12 +807,17 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
         if chosen is not None:
             fused_dense._split_cache[split_key] = chosen
         it, seed_loss = embedder.impl.state.iteration, embedder.getLoss()
+        seed_quality = evaluate_embedding(
+            graph.csr, embedder.impl.get_coordinates(), embedder.impl.get_weights()
+        )
         print("main_path_seed " + json.dumps(dict(
             seed=seed, splits=splits or chosen, iterations=it, att_loss=seed_loss.attractive,
             rep_loss=seed_loss.repulsive, total_loss=seed_loss.total,
+            MAP=seed_quality["MAP"], edgeF1=seed_quality["edgeF1"],
         )))
         check(0 < it < 1000, f"seed {seed}: did not converge before the cap")
         check(seed_loss.total <= LOSS_FACTOR * ref_total, f"seed {seed}: total loss {seed_loss.total}")
+        check(seed_quality["MAP"] >= MAP_FLAT_GIRG10K, f"seed {seed}: MAP {seed_quality['MAP']}")
         del embedder
 
     # ---- phase 5: the CLI
@@ -590,7 +835,12 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
         print(f"cli: rc 0, {len(rows)} rows, {cli_wall:.3f} s including start-up")
         check(len(rows) == 10000, f"CLI wrote {len(rows)} rows")
 
-    # ---- phase 6: girg100k
+    # ---- phase 6: the layered CLIs and reference expansion, girg10k
+    with tempfile.TemporaryDirectory() as tmp:
+        print("layered_cli " + json.dumps(layered_clis(Path(tmp))))
+    reference_expansion_run(graph)
+
+    # ---- phase 7: girg100k
     gen_seconds = finish_girg100k(gen_proc, gen_t0)
     md5 = hashlib.md5(GIRG100K.read_bytes()).hexdigest()
     reference = references["girg100k_d2"]
@@ -600,7 +850,7 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     check(md5 == GIRG100K_MD5, f"girg100k md5 {md5} != {GIRG100K_MD5}")
     check((n, m) == (reference["n"], reference["m"]), f"girg100k n={n} m={m}")
 
-    # ---- phase 7: the span sweep kernel against its plain version
+    # ---- phase 8: the span sweep kernel against its plain version
     api.setSeed(1)
     embedder = api.createEmbedder(graph, api.Options(embeddingDimension=2))
     impl = embedder.impl
@@ -633,7 +883,7 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     starved = compare_span("n20000_starved_d2", synthetic_span_case(20000, 2, starved=True, seed=8), False)
     check(starved["overflow"] > 0, "the starved case did not truncate its windows")
 
-    # ---- phase 8: the span main path
+    # ---- phase 9: the span main path
     ref_total = reference["att_loss"] + reference["rep_loss"]
     api.setSeed(1)
     embedder = api.createEmbedder(graph, api.Options(embeddingDimension=2))
@@ -653,7 +903,7 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     print(
         "main_path_span " + json.dumps(dict(
             graph="girg100k", n=n, m=m, dim=2, seed=1, iterations=iterations,
-            launches=span_launches, growth_events=impl._growth_events,
+            launches=span_launches, growth_events=impl.growth_events,
             shrink_events=impl._shrink_events, final_work_tiles=impl._index.w,
             final_overflow=overflow, att_loss=loss.attractive, rep_loss=loss.repulsive,
             total_loss=loss.total, reference_total_loss=ref_total, wall_s=wall,
@@ -664,11 +914,19 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     check(0 < iterations < 1000, f"span path did not converge before the cap ({iterations} iterations)")
     check(span_launches == iterations, f"{span_launches} sweep launches for {iterations} iterations")
     check(overflow == 0, f"span path ended with overflow {overflow}")
-    for name in ("positions", "adam_m", "adam_v", "attract_loss", "repel_loss", "pos_change"):
-        check(bool(torch.isfinite(getattr(state, name)).all()), f"non-finite {name} on the span path")
+    check_finite(state, "on the span path")
     check(loss.total <= LOSS_FACTOR * ref_total, f"span total loss {loss.total} > {LOSS_FACTOR} x {ref_total}")
+    flat = evaluate_embedding(graph.csr, impl.get_coordinates(), impl.get_weights())
+    print("quality_girg100k " + json.dumps(flat))
+    map_floor = MAP_FACTOR * reference["map"]
+    check(flat["MAP"] >= map_floor, f"girg100k MAP {flat['MAP']} < {map_floor}")
     print("span_breakdown " + json.dumps(span_breakdown(impl)))
     print("profile_span " + json.dumps(profile_steps(impl)))
+    del embedder, impl, state
+
+    # ---- phase 10: the layered main path, girg100k
+    layered = layered_main_path(graph, flat["MAP"])
+    pinned_ranking(graph.csr, *layered["embedding"])
 
     print(json.dumps({"kernels": [
         {
@@ -677,6 +935,7 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
             "source": "wembed_tpu_torch/csrc/fused_dense.cu",
             "replaces": "wembed_tpu/kernels/fused_dense.py:192",
             "launches": launches,
+            "launches_layered": layered["launches"]["fused_dense"],
             "max_abs_err": girg["max_abs_err"],
             "ms": girg["ms"],
             "plain_ms": girg["plain_ms"],
@@ -690,6 +949,7 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
             "source": "wembed_tpu_torch/csrc/span_sweep.cu",
             "replaces": "wembed_tpu/kernels/span_sparse.py:1735",
             "launches": span_launches,
+            "launches_layered": layered["launches"]["span_sweep"],
             "max_abs_err": girg_span["max_abs_err"],
             "ms": girg_span["ms"],
             "plain_ms": girg_span["plain_ms"],

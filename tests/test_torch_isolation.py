@@ -11,7 +11,10 @@ import torch
 
 from wembed_tpu_torch import api
 from wembed_tpu_torch.core import EmbedderOptions, RepulsionMode, WEmbedEmbedder
+from wembed_tpu_torch.eval import reconstruction_metrics
+from wembed_tpu_torch.eval.spaces import Euclidean
 from wembed_tpu_torch.graphs import io
+from wembed_tpu_torch.multilevel import LayeredEmbedder
 
 torch.set_num_threads(1)
 
@@ -24,6 +27,8 @@ def test_no_module_imports_jax():
         "names = [m.name for m in pkgutil.walk_packages(wembed_tpu_torch.__path__, 'wembed_tpu_torch.')]\n"
         "for name in names: importlib.import_module(name)\n"
         "assert len(names) > 10, names\n"
+        "for name in ('multilevel.layered', 'multilevel.label_prop', 'eval.device', 'cli.evaluate'):\n"
+        "    assert 'wembed_tpu_torch.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'wembed_tpu.')) or m == 'wembed_tpu')\n"
         "assert not bad, bad\n"
     )
@@ -44,6 +49,14 @@ def test_default_device_raises_without_cuda():
         WEmbedEmbedder(_small_graph(), verbose=False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         api.createEmbedder(api.Graph(_small_graph()), api.Options())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LayeredEmbedder(_small_graph(), verbose=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.createEmbedder(api.Graph(_small_graph()), api.Options(layeredEmbedding=True))
+    space = Euclidean(np.zeros((5, 2)))
+    for method in ("device", "auto"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            reconstruction_metrics(_small_graph(), space, method=method)
 
 
 @pytest.mark.parametrize(
@@ -61,7 +74,7 @@ def test_unported_options_raise(opts):
 
 
 @pytest.mark.parametrize(
-    "options", [api.Options(layeredEmbedding=True), api.Options(distributedMode="halo")]
+    "options", [api.Options(distributedMode="replicated"), api.Options(distributedMode="halo")]
 )
 def test_unported_api_modes_raise(options):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -2,9 +2,9 @@
 
 Same flags as ``wembed_tpu/cli/embed.py`` (the reference's cli_wembed,
 src/cli_wembed/main.cpp:40-84).  Runs on the CUDA device.  The flags of
-paths that are not ported yet (``--layered``, ``--distributed``,
-``--num-devices``, ``--multihost``, ``--profile-timings``) stop with a
-message that names the ROADMAP item.
+paths that are not ported yet (``--distributed``, ``--num-devices``,
+``--multihost``, ``--profile-timings``) stop with a message that names the
+ROADMAP item.
 
     python -m wembed_tpu_torch.cli.embed -i assets/girg10k.edg -o emb.csv --seed 1 --dim 2
 """
@@ -31,8 +31,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Per-phase timing tree (not ported yet)")
     p.add_argument("--seed", type=int, default=-1,
                    help="Seed used during embedding. '-1' uses time as seed")
-    p.add_argument("--layered", action="store_true",
-                   help="Use layered embedding (not ported yet)")
+    p.add_argument("--layered", action="store_true", help="Use layered embedding")
     p.add_argument("--dim", type=int, default=4, help="Embedding dimension")
     p.add_argument("--dim-hint", type=float, default=-1.0,
                    help="Dimension hint. Negative values use dim as dimension hint.")
@@ -71,14 +70,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 _NOT_PORTED = {
-    "layered": "--layered: layered embedding is ROADMAP.md, Queue 1, item 10",
     "distributed": "--distributed: the multi-device backends are ROADMAP.md, Queue 1, item 16",
     "multihost": "--multihost: the multi-device backends are ROADMAP.md, Queue 1, item 16",
     "profile_timings": "--profile-timings: the profiled step is ROADMAP.md, Queue 1, item 12",
 }
 
 
-def main(argv=None) -> int:
+def main(argv=None, device: str = "cuda") -> int:
+    """Embed as the flags say, on ``device``."""
     parser = build_parser()
     args = parser.parse_args(argv)
     for flag, msg in _NOT_PORTED.items():
@@ -94,6 +93,7 @@ def main(argv=None) -> int:
         embeddingDimension=args.dim,
         useUnitWeights=args.unit_weights,
         dimensionHint=args.dim_hint,
+        layeredEmbedding=args.layered,
         expansionMode=args.expansion_mode,
         indexType=args.index_type,
         attractionScale=args.attraction,
@@ -105,7 +105,7 @@ def main(argv=None) -> int:
         maxIterations=args.iterations,
         positionMinChange=args.min_change,
     )
-    embedder = wembed.createEmbedder(graph, opts, device="cuda")
+    embedder = wembed.createEmbedder(graph, opts, device=device)
 
     if args.init_coordinates:
         embedder.setCoordinates(wembed.readCoordinatesFromFile(args.init_coordinates))

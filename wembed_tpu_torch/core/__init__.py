@@ -1,10 +1,17 @@
-from .options import EmbedderOptions, OptimizerType, RepulsionMode, WeightType
+from .options import (
+    EmbedderOptions,
+    OptimizerType,
+    PartitionerOptions,
+    RepulsionMode,
+    WeightType,
+)
 from .state import DeviceGraph, EmbedState, init_state, random_positions
 from .embedder import Loss, WEmbedEmbedder
 
 __all__ = [
     "EmbedderOptions",
     "OptimizerType",
+    "PartitionerOptions",
     "RepulsionMode",
     "WeightType",
     "DeviceGraph",

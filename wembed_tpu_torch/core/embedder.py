@@ -262,6 +262,22 @@ class WEmbedEmbedder(SpanGrowthMixin):
         return self._state.iteration
 
     @property
+    def path(self) -> str:
+        """``"span"`` above ``dense_threshold`` (or under
+        ``RepulsionMode.BUCKET``), else ``"dense"``."""
+        return "span" if self._span else "dense"
+
+    @property
+    def growth_events(self) -> int:
+        """Window growths of the span path since the weights were set."""
+        return self._growth_events
+
+    @property
+    def final_overflow(self) -> int:
+        """Truncated candidate pairs of the last step (0 on the dense path)."""
+        return int(self._state.overflow)
+
+    @property
     def num_vertices(self) -> int:
         return self.graph.num_vertices
 

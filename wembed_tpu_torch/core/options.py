@@ -9,6 +9,9 @@ span path's ``window_capacity``, ``span_layout`` and
 (``fused_dense``, ``fused_span``) have no counterpart: the port picks its
 kernel from the device of the tensors.
 
+``PartitionerOptions`` are the multilevel coarsening knobs, with the
+reference's defaults.
+
 The port runs the dense path (n <= dense_threshold) and the windowed span
 path above it.  Negative sampling, a partial index (``index_size < 1``)
 and the cell layout raise ``NotImplementedError`` naming the ROADMAP item
@@ -113,3 +116,14 @@ class EmbedderOptions:
             if self.span_layout not in ("auto", "windows"):
                 raise ValueError(f"unknown span_layout {self.span_layout!r}")
         return mode
+
+
+@dataclass(frozen=True)
+class PartitionerOptions:
+    """Multilevel coarsening knobs (reference
+    src/embeddingLib/include/partition/Partitioner.hpp:9-16)."""
+
+    max_iterations: int = 20
+    max_cluster_size: int = 6
+    final_graph_size: int = 10
+    order_type: int = 0  # 0 = ascending degree, 1 = random

@@ -4,5 +4,13 @@ first use (``_build.py``).  The span sweep lives in ``span_sweep`` and
 the span path around it in ``span_sparse``."""
 
 from .fused_dense import fused_dense_forces, fused_dense_forces_reference
+from . import span_sweep as _span_sweep
 
-__all__ = ["fused_dense_forces", "fused_dense_forces_reference"]
+
+def launch_counts() -> dict[str, int]:
+    """Each CUDA kernel's launches so far in this process (the plain
+    versions are not counted)."""
+    return {"fused_dense": fused_dense_forces.launches, "span_sweep": _span_sweep.span_sweep.launches}
+
+
+__all__ = ["fused_dense_forces", "fused_dense_forces_reference", "launch_counts"]

@@ -1,9 +1,11 @@
-"""Builds the package's CUDA sources into plain C-interface shared libraries.
+"""Builds the package's C++ sources into plain C-interface shared libraries.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` into
+Each ``csrc/<name>.cu`` (a CUDA kernel) compiles with ``nvcc``, and each
+``csrc/<name>.cpp`` (host code) with ``g++``, into
 ``build/wembed_tpu_torch/lib<name>_<hash>.so`` at the repository root the
-first time a kernel of it launches, and loads with ``ctypes``.  The file
-name carries a hash of the sources and the flags, so an edit rebuilds.
+first time it is used, and loads with ``ctypes``.  The file name carries a
+hash of the sources and the flags, so an edit rebuilds.  A failed build
+raises; nothing falls back to Python.
 
 Flags: ``--fmad=false`` keeps every multiply and add separately rounded,
 as PyTorch's eager elementwise ops round them, so the kernels' dead-zone
@@ -32,13 +34,14 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 
 @dataclass(frozen=True)
 class BuildInfo:
     path: Path
     seconds: float  # 0.0 when the library was already built
-    log: str  # nvcc's output (ptxas register and shared-memory report)
+    log: str  # the compiler's output (for nvcc, ptxas's register and shared-memory report)
 
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -55,17 +58,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found on PATH")
+
+
 def _sources(name: str) -> list[Path]:
-    main = CSRC / f"{name}.cu"
-    if not main.exists():
-        raise FileNotFoundError(main)
-    return [main, *sorted(CSRC.glob("*.cuh"))]
+    cuda, host = CSRC / f"{name}.cu", CSRC / f"{name}.cpp"
+    if cuda.exists():
+        return [cuda, *sorted(CSRC.glob("*.cuh"))]
+    if host.exists():
+        return [host]
+    raise FileNotFoundError(cuda)
 
 
 def build(name: str) -> BuildInfo:
-    """Compile ``csrc/<name>.cu`` unless a library of the same sources exists."""
+    """Compile ``csrc/<name>.cu`` or ``csrc/<name>.cpp`` unless a library of
+    the same sources exists."""
     sources = _sources(name)
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cuda = sources[0].suffix == ".cu"
+    flags = NVCC_FLAGS if cuda else GXX_FLAGS
+    digest = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -76,13 +91,13 @@ def build(name: str) -> BuildInfo:
     # build to a private name, then rename: a concurrent process never
     # loads a half-written library
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(sources[0])]
+    cmd = [_nvcc() if cuda else _gxx(), *flags, "-o", str(tmp), str(sources[0])]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}: {' '.join(cmd)}\n"
+            f"{Path(cmd[0]).name} failed with code {proc.returncode}: {' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, out)
@@ -90,7 +105,7 @@ def build(name: str) -> BuildInfo:
 
 
 def load(name: str, configure: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``, built if needed and loaded once per
+    """The library of ``csrc/<name>``, built if needed and loaded once per
     process; ``configure`` sets its functions' argtypes on first load."""
     lib = _loaded.get(name)
     if lib is None:
