@@ -7,7 +7,7 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. a CUDA card is present; print torch/CUDA versions, the card's name and
-     power limit; start making girg100k (phase 7) in a subprocess;
+     power limit; start making girg100k (phase 8) in a subprocess;
   2. build the CUDA kernels from ``wembed_tpu_torch/csrc`` (one nvcc per
      source) and the layered path's host label propagation (g++), all
      started together; print the kernels' registers and spills, and fail
@@ -33,34 +33,51 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      of five finite metrics; then a layered API run with reference
      expansion, which must converge with finite state after a first
      expanded step with coincident pairs;
-  7. girg100k d=2 from the port's ``generate`` CLI (cached in
+  7. girg10k resumed: a run capped at 200 iterations, checkpointed and
+     continued, against a fresh embedder (another seed) that loads the file
+     and continues; final state bitwise equal, same iterations and kernel
+     launches after the checkpoint.  Then girg10k with ``profile`` (the
+     phase tree from CUDA events, one launch a step, converged within the
+     loss limit; its wall beside phase 4's), and 20 steps with
+     ``debug_checks``, which must pass clean;
+  8. girg100k d=2 from the port's ``generate`` CLI (cached in
      ``build/graphs/``), checked by md5 and by n and m against
      ``baselines/reference_measured.json``;
-  8. hold the span sweep kernel against its plain version on the card:
+  9. hold the span sweep kernel against its plain version on the card:
      girg100k d=2 at positions after 20 steps of a seeded run (timed; then
      with one tile a work item, and timed at other item sizes), girg100k
      d=4 after 20 steps (timed), and synthetic cases with additive weights
      at d=3, a bipartite colouring, coincident points at d=4 and starved
      windows;
-  9. the span main path: the API on girg100k, d=2, seed 1,
+ 10. the span main path: the API on girg100k, d=2, seed 1,
      ``calculateEmbedding()``: below 1000 iterations, one sweep launch per
      iteration, final overflow 0, every state tensor finite, total loss
      within 1.15x the C++ reference's, MAP at least 0.9x the C++
      reference's; then a breakdown of a step at the converged positions by
      CUDA events (with the sweep at other item sizes) and a profile of 20
      further steps;
- 10. the layered main path: the API with ``layeredEmbedding=True`` on
+ 11. the layered main path: the API with ``layeredEmbedding=True`` on
      girg100k, d=2, seed 1: a ``layer`` line a layer, every layer below
      1000 iterations, the dense kernel launched once per iteration of the
      dense layers and the sweep once per iteration of the span layers,
      final overflow 0, every state tensor finite, MAP at least 0.74 and
      above the flat run's; then the ranking on the card against the host
-     loop on 128 pinned vertices.
+     loop on 128 pinned vertices;
+ 12. girg100k resumed as in phase 7 (the cap a multiple of the span
+     windows' resize interval; growth events and final overflow 0 equal
+     too); the layered run stepped into its 18,190-vertex span layer,
+     checkpointed there and continued, against a layered embedder from
+     another seed that loads the file: hierarchy from the file, final
+     coordinates bitwise equal, MAP at least 0.74; girg100k with
+     ``profile`` as in phase 7;
+ 13. negative sampling on girg100k (10 negatives a vertex): finite state,
+     every step's candidate count within [0.99 n k, n k], MAP and F1
+     printed.
 
 Every kernel comparison also launches the kernel twice on the same inputs
 and fails unless the two outputs are bitwise equal.  The line before the
 last is a JSON summary of the kernels (time, bound, launches on the main
-paths, flat and layered); the last line is ``{"ok": true, "device":
+paths: flat, layered, profiled and resumed); the last line is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX.
 """
 
@@ -104,6 +121,11 @@ EVALUATE_HEADER = (  # the evaluator CLI's columns, as wembed_tpu/cli/evaluate.p
     "num_nodes,num_edges,constructDeg,MAP,precision,recall,edgeF1"
 )
 STATE_TENSORS = ("positions", "adam_m", "adam_v", "attract_loss", "repel_loss", "pos_change")
+RESUME_CAP = 200  # iterations before the checkpoint; a multiple of span_resize_interval (50)
+RESUME_LAYER_N = 18190  # girg100k's first span layer (seed 1, default partitioner)
+PHASES = ("attracting_forces", "repelling_forces", "apply_forces", "gravity", "position_change")
+NEGATIVE_SAMPLES = 10
+DEBUG_STEPS = 20
 
 
 def check(cond: bool, msg: str) -> None:
@@ -701,6 +723,241 @@ def span_item_sizes(args, kw) -> dict:
     return out
 
 
+def counters():
+    """The launch counter of each hand kernel's wrapper."""
+    from wembed_tpu_torch.kernels import fused_dense, span_sweep
+
+    return dict(fused_dense=fused_dense.fused_dense_forces, span_sweep=span_sweep.span_sweep)
+
+
+def reset_launches() -> None:
+    for wrapper in counters().values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: wrapper.launches for name, wrapper in counters().items()}
+
+
+def continue_run(impl) -> tuple[float, dict]:
+    """``calculate_embedding()`` with every launch count set to 0 just
+    before and read just after: (wall seconds, launches)."""
+    import torch
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    impl.calculate_embedding()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, read_launches()
+
+
+def same_state(a, b) -> bool:
+    """Every state tensor of two embedders bitwise equal."""
+    import torch
+
+    names = STATE_TENSORS + ("num_rep_forces", "overflow")
+    return all(torch.equal(getattr(a, k), getattr(b, k)) for k in names)
+
+
+def flat_resume(name: str, graph, kernel: str, tmp: Path) -> dict:
+    """``calculate_embedding`` capped at RESUME_CAP, a checkpoint, then on
+    to convergence; a fresh embedder from another seed loads the file and
+    continues.  Final state, iterations, growth events and ``kernel``'s
+    launches after the checkpoint must be equal, bit for bit."""
+    from wembed_tpu_torch import api
+    from wembed_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
+
+    api.setSeed(1)
+    saved = api.createEmbedder(graph, api.Options(embeddingDimension=2)).impl
+    saved.calculate_embedding(max_iterations=RESUME_CAP)
+    path = str(tmp / f"{name}.npz")
+    t0 = time.perf_counter()
+    save_checkpoint(path, saved)
+    save_s = time.perf_counter() - t0
+    saved_wall, saved_launches = continue_run(saved)
+    api.setSeed(2)
+    resumed = api.createEmbedder(graph, api.Options(embeddingDimension=2)).impl
+    t0 = time.perf_counter()
+    load_checkpoint(path, resumed)
+    load_s = time.perf_counter() - t0
+    resumed_wall, resumed_launches = continue_run(resumed)
+    row = dict(
+        graph=name, path=resumed.path, cap=RESUME_CAP, iterations=[saved.iteration, resumed.iteration],
+        launches_after_checkpoint=[saved_launches[kernel], resumed_launches[kernel]],
+        growth_events=[saved.growth_events, resumed.growth_events],
+        final_overflow=[saved.final_overflow, resumed.final_overflow],
+        total_loss=[saved.get_loss().total, resumed.get_loss().total],
+        bitwise_equal=same_state(saved.state, resumed.state),
+        file_bytes=Path(path).stat().st_size, save_s=save_s, load_s=load_s,
+        continue_wall_s=[saved_wall, resumed_wall],
+    )
+    print(f"resume_{name} " + json.dumps(row))
+    check(row["bitwise_equal"], f"{name} resume: the final states differ")
+    check(saved.iteration == resumed.iteration < 1000, f"{name} resume: iterations {row['iterations']}")
+    check(saved_launches == resumed_launches and resumed_launches[kernel] == saved.iteration - RESUME_CAP,
+          f"{name} resume: launches after the checkpoint {saved_launches} / {resumed_launches}")
+    check(saved.growth_events == resumed.growth_events, f"{name} resume: growth events differ")
+    check(saved.final_overflow == resumed.final_overflow == 0, f"{name} resume: final overflow")
+    return row
+
+
+def layered_resume(graph, tmp: Path) -> dict:
+    """The layered API run stepped by ``calculateStep`` into girg100k's
+    first span layer, checkpointed there, and continued by
+    ``calculate_embedding``; a layered embedder built from another seed
+    loads the file (its hierarchy then comes from the file) and continues.
+    Final coordinates bitwise equal, both kernels launched as often after
+    the checkpoint, MAP at least MAP_FACTOR x the JAX package's."""
+    import numpy as np
+
+    from wembed_tpu_torch import api
+    from wembed_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
+    from wembed_tpu_torch.eval import reconstruction_metrics
+    from wembed_tpu_torch.eval.spaces import WeightedGeometric
+
+    options = api.Options(embeddingDimension=2, layeredEmbedding=True)
+    api.setSeed(1)
+    saved = api.createEmbedder(graph, options)
+    impl = saved.impl
+    t0 = time.perf_counter()
+    steps = 0
+    while impl.current_layer > 1:
+        saved.calculateStep()
+        steps += 1
+    step_s = time.perf_counter() - t0
+    check(impl.num_vertices == RESUME_LAYER_N and impl._current.path == "span",
+          f"layered resume: layer 1 has {impl.num_vertices} vertices on the {impl._current.path} path")
+    path = str(tmp / "layered.npz")
+    save_checkpoint(path, impl)
+    saved_wall, saved_launches = continue_run(impl)
+    api.setSeed(2)
+    resumed = api.createEmbedder(graph, options).impl
+    load_checkpoint(path, resumed)
+    parents_equal = all(
+        np.array_equal(a.parent, b.parent) for a, b in zip(resumed.hierarchy.layers, impl.hierarchy.layers)
+    )
+    resumed_wall, resumed_launches = continue_run(resumed)
+    coords, weights = resumed.get_coordinates(), resumed.get_weights()
+    quality = reconstruction_metrics(
+        graph.csr, WeightedGeometric(coords, weights=weights), NODE_SAMPLES, np.random.default_rng(1),
+        device="cuda",
+    )
+    row = dict(
+        steps_to_layer=steps, step_s=step_s, layer_n=RESUME_LAYER_N, parents_equal=parents_equal,
+        layers=[r.n for r in resumed.layer_records], iterations=[impl.iteration, resumed.iteration],
+        launches_after_checkpoint=[saved_launches, resumed_launches],
+        final_overflow=[impl._current.final_overflow, resumed._current.final_overflow],
+        bitwise_equal=bool(np.array_equal(coords, impl.get_coordinates()))
+        and same_state(impl.state, resumed.state),
+        continue_wall_s=[saved_wall, resumed_wall], **quality,
+    )
+    print("resume_layered " + json.dumps(row))
+    check(parents_equal, "layered resume: the hierarchy does not come from the file")
+    check(row["layers"] == [RESUME_LAYER_N, graph.getNumVertices()], f"layered resume: layers {row['layers']}")
+    check(row["bitwise_equal"], "layered resume: the final coordinates differ")
+    check(impl.iteration == resumed.iteration, f"layered resume: iterations {row['iterations']}")
+    check(saved_launches == resumed_launches and resumed_launches["span_sweep"] > 0,
+          f"layered resume: launches {saved_launches} / {resumed_launches}")
+    check(row["final_overflow"] == [0, 0], f"layered resume: final overflow {row['final_overflow']}")
+    target = MAP_FACTOR * MAP_LAYERED_TARGET
+    check(quality["MAP"] >= target, f"layered resume: MAP {quality['MAP']} < {target}")
+    return dict(row, launches=resumed_launches)
+
+
+def profiled_run(name: str, graph, kernel: str, normal_wall: float, ref_total: float) -> dict:
+    """The API run with ``profile`` set on the embedder (as ``embed
+    --profile-timings`` sets it) to convergence: the phase tree from CUDA
+    events, one launch of ``kernel`` a step, the loss limit, and the
+    profiled wall beside the normal run's."""
+    import torch
+
+    from wembed_tpu_torch import api
+
+    api.setSeed(1)
+    embedder = api.createEmbedder(graph, api.Options(embeddingDimension=2))
+    embedder.impl.profile = True
+    wall, launches = continue_run(embedder.impl)
+    iterations = embedder.impl.iteration
+    timings = embedder.getTimings()
+    tree = [(t.depth, t.display_name) for t in timings]
+    want = [(0, "Embedding")] + [(1, p) for p in (("index",) if kernel == "span_sweep" else ()) + PHASES]
+    loss = embedder.getLoss()
+    row = dict(
+        graph=name, iterations=iterations, launches=launches[kernel], wall_s=wall,
+        normal_wall_s=normal_wall, total_loss=loss.total, reference_total_loss=ref_total,
+        phase_ms_per_step={t.display_name: t.value * 1000.0 / iterations for t in timings[1:]},
+        embedding_s=timings[0].value,
+    )
+    print(f"profile_tree_{name}\n" + api.timingsToString(timings))
+    print(f"profiled_{name} " + json.dumps(row))
+    check(tree == want, f"{name} profile: tree {tree}")
+    check(0 < iterations < 1000, f"{name} profile: {iterations} iterations")
+    check(launches[kernel] == iterations, f"{name} profile: {launches[kernel]} launches for {iterations} steps")
+    check_finite(embedder.impl.state, f"after the profiled {name} run")
+    check(loss.total <= LOSS_FACTOR * ref_total, f"{name} profile: total loss {loss.total}")
+    torch.cuda.synchronize()
+    return row
+
+
+def sampled_run(graph) -> dict:
+    """girg100k d=2 with NEGATIVE_SAMPLES negatives a vertex: finite state,
+    every step's candidate count within [0.99 n k, n k] (non-neighbours of
+    another colour among the draws), MAP and F1 printed with no floor."""
+    import torch
+
+    from wembed_tpu_torch import api
+    from wembed_tpu_torch.core import EmbedderOptions, WEmbedEmbedder
+
+    api.setSeed(1)
+    impl = WEmbedEmbedder(
+        graph.csr, EmbedderOptions(embedding_dimension=2, num_negative_samples=NEGATIVE_SAMPLES), verbose=False
+    )
+    counts = []
+    step = impl._step
+
+    def recording_step(state):
+        state = step(state)
+        counts.append(state.num_rep_forces)  # kept on the card: no synchronisation
+        return state
+
+    impl._step = recording_step
+    wall, launches = continue_run(impl)
+    counts = torch.stack(counts).cpu()
+    n, k = graph.getNumVertices(), NEGATIVE_SAMPLES
+    quality = evaluate_embedding(graph.csr, impl.get_coordinates(), impl.get_weights())
+    loss = impl.get_loss()
+    row = dict(
+        graph="girg100k", n=n, k=k, path=impl.path, iterations=impl.iteration, wall_s=wall,
+        step_ms=wall * 1000.0 / impl.iteration, launches=launches,
+        count_min=int(counts.min()), count_max=int(counts.max()), att_loss=loss.attractive,
+        rep_loss=loss.repulsive, total_loss=loss.total, **quality,
+    )
+    print("sampled_girg100k " + json.dumps(row))
+    check(impl.path == "sampled" and len(counts) == impl.iteration > 0, "sampled run: no sampled steps")
+    check_finite(impl.state, "on the sampled path")
+    check(0.99 * n * k <= row["count_min"] and row["count_max"] <= n * k,
+          f"sampled run: counts {row['count_min']}..{row['count_max']} outside [0.99 n k, n k]")
+    return row
+
+
+def debug_checks_run(graph) -> dict:
+    """DEBUG_STEPS steps of girg10k with ``debug_checks``: every step
+    validates the state and must pass clean."""
+    from wembed_tpu_torch import api
+    from wembed_tpu_torch.core import EmbedderOptions, WEmbedEmbedder
+
+    api.setSeed(1)
+    impl = WEmbedEmbedder(graph.csr, EmbedderOptions(embedding_dimension=2, debug_checks=True), verbose=False)
+    t0 = time.perf_counter()
+    for _ in range(DEBUG_STEPS):
+        impl.calculate_step()  # raises FloatingPointError on a non-finite state tensor
+    row = dict(steps=impl.iteration, wall_s=time.perf_counter() - t0)
+    print("debug_checks " + json.dumps(row))
+    check(impl.iteration == DEBUG_STEPS, "debug checks: steps missing")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -787,6 +1044,7 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     check(launches == iterations, f"{launches} kernel launches for {iterations} iterations")
     check_finite(state, "on the dense path")
     check(loss.total <= LOSS_FACTOR * ref_total, f"total loss {loss.total} > {LOSS_FACTOR} x {ref_total}")
+    dense_wall, dense_ref_total = wall, ref_total
     quality = evaluate_embedding(graph.csr, embedder.impl.get_coordinates(), embedder.impl.get_weights())
     print("quality_girg10k " + json.dumps(quality))
     check(quality["MAP"] >= MAP_FLAT_GIRG10K, f"girg10k MAP {quality['MAP']} < {MAP_FLAT_GIRG10K}")
@@ -840,7 +1098,13 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
         print("layered_cli " + json.dumps(layered_clis(Path(tmp))))
     reference_expansion_run(graph)
 
-    # ---- phase 7: girg100k
+    # ---- phase 7: girg10k resumed from a checkpoint, profiled, and with debug checks
+    with tempfile.TemporaryDirectory() as tmp:
+        resume_dense = flat_resume("girg10k", graph, "fused_dense", Path(tmp))
+    profiled_dense = profiled_run("girg10k", graph, "fused_dense", dense_wall, dense_ref_total)
+    debug_checks_run(graph)
+
+    # ---- phase 8: girg100k
     gen_seconds = finish_girg100k(gen_proc, gen_t0)
     md5 = hashlib.md5(GIRG100K.read_bytes()).hexdigest()
     reference = references["girg100k_d2"]
@@ -850,7 +1114,7 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     check(md5 == GIRG100K_MD5, f"girg100k md5 {md5} != {GIRG100K_MD5}")
     check((n, m) == (reference["n"], reference["m"]), f"girg100k n={n} m={m}")
 
-    # ---- phase 8: the span sweep kernel against its plain version
+    # ---- phase 9: the span sweep kernel against its plain version
     api.setSeed(1)
     embedder = api.createEmbedder(graph, api.Options(embeddingDimension=2))
     impl = embedder.impl
@@ -883,7 +1147,7 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     starved = compare_span("n20000_starved_d2", synthetic_span_case(20000, 2, starved=True, seed=8), False)
     check(starved["overflow"] > 0, "the starved case did not truncate its windows")
 
-    # ---- phase 9: the span main path
+    # ---- phase 10: the span main path
     ref_total = reference["att_loss"] + reference["rep_loss"]
     api.setSeed(1)
     embedder = api.createEmbedder(graph, api.Options(embeddingDimension=2))
@@ -916,6 +1180,7 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     check(overflow == 0, f"span path ended with overflow {overflow}")
     check_finite(state, "on the span path")
     check(loss.total <= LOSS_FACTOR * ref_total, f"span total loss {loss.total} > {LOSS_FACTOR} x {ref_total}")
+    span_wall = wall
     flat = evaluate_embedding(graph.csr, impl.get_coordinates(), impl.get_weights())
     print("quality_girg100k " + json.dumps(flat))
     map_floor = MAP_FACTOR * reference["map"]
@@ -924,9 +1189,19 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     print("profile_span " + json.dumps(profile_steps(impl)))
     del embedder, impl, state
 
-    # ---- phase 10: the layered main path, girg100k
+    # ---- phase 11: the layered main path, girg100k
     layered = layered_main_path(graph, flat["MAP"])
     pinned_ranking(graph.csr, *layered["embedding"])
+    del layered["embedding"]
+
+    # ---- phase 12: girg100k resumed from checkpoints (flat span, layered) and profiled
+    with tempfile.TemporaryDirectory() as tmp:
+        resume_span = flat_resume("girg100k", graph, "span_sweep", Path(tmp))
+        resume_layered = layered_resume(graph, Path(tmp))
+    profiled_span = profiled_run("girg100k", graph, "span_sweep", span_wall, ref_total)
+
+    # ---- phase 13: negative sampling, girg100k
+    sampled_run(graph)
 
     print(json.dumps({"kernels": [
         {
@@ -936,6 +1211,9 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
             "replaces": "wembed_tpu/kernels/fused_dense.py:192",
             "launches": launches,
             "launches_layered": layered["launches"]["fused_dense"],
+            "launches_profiled": profiled_dense["launches"],
+            "launches_resumed": resume_dense["launches_after_checkpoint"][1],
+            "launches_resumed_layered": resume_layered["launches"]["fused_dense"],
             "max_abs_err": girg["max_abs_err"],
             "ms": girg["ms"],
             "plain_ms": girg["plain_ms"],
@@ -950,6 +1228,9 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
             "replaces": "wembed_tpu/kernels/span_sparse.py:1735",
             "launches": span_launches,
             "launches_layered": layered["launches"]["span_sweep"],
+            "launches_profiled": profiled_span["launches"],
+            "launches_resumed": resume_span["launches_after_checkpoint"][1],
+            "launches_resumed_layered": resume_layered["launches"]["span_sweep"],
             "max_abs_err": girg_span["max_abs_err"],
             "ms": girg_span["ms"],
             "plain_ms": girg_span["plain_ms"],

@@ -27,7 +27,8 @@ def test_no_module_imports_jax():
         "names = [m.name for m in pkgutil.walk_packages(wembed_tpu_torch.__path__, 'wembed_tpu_torch.')]\n"
         "for name in names: importlib.import_module(name)\n"
         "assert len(names) > 10, names\n"
-        "for name in ('multilevel.layered', 'multilevel.label_prop', 'eval.device', 'cli.evaluate'):\n"
+        "for name in ('multilevel.layered', 'multilevel.label_prop', 'eval.device', 'cli.evaluate',\n"
+        "             'core.checkpoint', 'draw.svg', 'draw.ipe', 'draw.animate'):\n"
         "    assert 'wembed_tpu_torch.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'wembed_tpu.')) or m == 'wembed_tpu')\n"
         "assert not bad, bad\n"
@@ -64,8 +65,6 @@ def test_default_device_raises_without_cuda():
     [
         EmbedderOptions(repulsion_mode=RepulsionMode.BUCKET, span_layout="cells"),
         EmbedderOptions(dense_threshold=3, index_size=0.5),  # AUTO above the threshold
-        EmbedderOptions(num_negative_samples=5),
-        EmbedderOptions(dump_weights=True),
     ],
 )
 def test_unported_options_raise(opts):

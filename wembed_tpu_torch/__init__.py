@@ -8,11 +8,12 @@ PyTorch; each Pallas kernel of the JAX package becomes a hand-written CUDA
 kernel under ``csrc/`` with a plain PyTorch version beside it, which CPU
 tensors run.
 
-The port runs the flat embedding — the dense path (n <= dense_threshold)
-and the span path above it — the layered (multilevel) embedding over it
-(``multilevel``) and the evaluation metrics (``eval``).  Negative sampling,
-a partial index, the cell layout, distributed runs and the profiled step
-raise ``NotImplementedError`` naming their ROADMAP item.
+The port runs the flat embedding — the dense path (n <= dense_threshold),
+the span path above it, and negative sampling — the layered (multilevel)
+embedding over it (``multilevel``), the profiled step, checkpoints
+(``core/checkpoint.py``), the evaluation metrics (``eval``) and drawing
+(``draw``).  A partial index, the cell layout and distributed runs raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from . import core, graphs, utils

@@ -234,11 +234,40 @@ def _expansion_mode(options: Options) -> ExpansionMode:
     )
 
 
+def graphFromEdges(edges: Sequence[Edge] | np.ndarray) -> Graph:
+    """Each undirected edge should appear exactly once; vertex ids must be
+    consecutive starting at 0 (include/wembed.h:149-151)."""
+    if len(edges) and isinstance(edges[0], Edge):
+        arr = np.asarray([[e.src, e.dst] for e in edges], dtype=np.int64)
+    else:
+        arr = np.asarray(edges, dtype=np.int64)
+    return Graph(csr.from_edges(arr))
+
+
 def graphFromEdgeListFile(
     filePath: str, comment: str = "#", delimiter: str = " "
 ) -> Graph:
     delim = None if delimiter in (" ", "\t") else delimiter
     return Graph(io.read_edge_list(filePath, comment, delim))
+
+
+def graph_from_networkx(nx_graph) -> Graph:
+    """Convert a networkx graph whose nodes are hashable labels into a
+    ``Graph`` (relabelled to consecutive ids), the helper of the
+    reference's Python example (python/examples/cli_example.py:46-63).
+    Duck-typed: any object with ``nodes()`` and ``edges()`` will do, and
+    networkx is not imported.
+
+    Returns the Graph; the id mapping is available as ``.node_labels``
+    (index -> original label)."""
+    labels = list(nx_graph.nodes())
+    index_of = {label: i for i, label in enumerate(labels)}
+    arr = np.asarray(
+        [[index_of[u], index_of[v]] for u, v in nx_graph.edges()], dtype=np.int64
+    ).reshape(-1, 2)
+    g = Graph(csr.from_edges(arr, num_vertices=len(labels)))
+    g.node_labels = labels
+    return g
 
 
 def readCoordinatesFromFile(

@@ -2,9 +2,11 @@
 
 Same flags as ``wembed_tpu/cli/embed.py`` (the reference's cli_wembed,
 src/cli_wembed/main.cpp:40-84).  Runs on the CUDA device.  The flags of
-paths that are not ported yet (``--distributed``, ``--num-devices``,
-``--multihost``, ``--profile-timings``) stop with a message that names the
-ROADMAP item.
+the multi-device paths, which are not ported yet (``--distributed``,
+``--num-devices``, ``--multihost``), stop with a message that names the
+ROADMAP item.  ``--profile-timings`` prints the profiled step's phase tree
+(index / attracting_forces / repelling_forces / apply_forces / gravity /
+position_change), timed by CUDA events.
 
     python -m wembed_tpu_torch.cli.embed -i assets/girg10k.edg -o emb.csv --seed 1 --dim 2
 """
@@ -27,8 +29,13 @@ def build_parser() -> argparse.ArgumentParser:
         "coordinates are initialized randomly.",
     )
     p.add_argument("--timings", action="store_true", help="Print timings after embedding")
-    p.add_argument("--profile-timings", action="store_true",
-                   help="Per-phase timing tree (not ported yet)")
+    p.add_argument(
+        "--profile-timings", action="store_true",
+        help="Per-phase timing tree (index/attraction/repulsion/apply/"
+        "gravity/position_change, like the reference's --timings), timed "
+        "by CUDA events with one synchronisation a step; slower than the "
+        "normal loop, for profiling, not production runs.",
+    )
     p.add_argument("--seed", type=int, default=-1,
                    help="Seed used during embedding. '-1' uses time as seed")
     p.add_argument("--layered", action="store_true", help="Use layered embedding")
@@ -72,7 +79,6 @@ def build_parser() -> argparse.ArgumentParser:
 _NOT_PORTED = {
     "distributed": "--distributed: the multi-device backends are ROADMAP.md, Queue 1, item 16",
     "multihost": "--multihost: the multi-device backends are ROADMAP.md, Queue 1, item 16",
-    "profile_timings": "--profile-timings: the profiled step is ROADMAP.md, Queue 1, item 12",
 }
 
 
@@ -106,13 +112,15 @@ def main(argv=None, device: str = "cuda") -> int:
         positionMinChange=args.min_change,
     )
     embedder = wembed.createEmbedder(graph, opts, device=device)
+    if args.profile_timings:
+        embedder.impl.profile = True
 
     if args.init_coordinates:
         embedder.setCoordinates(wembed.readCoordinatesFromFile(args.init_coordinates))
 
     embedder.calculateEmbedding()
 
-    if args.timings:
+    if args.timings or args.profile_timings:
         print(wembed.timingsToString(embedder.getTimings()))
     if args.embedding:
         embedder.writeCoordinates(args.embedding)

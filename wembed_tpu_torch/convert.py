@@ -1,10 +1,12 @@
 """Carrying an embedding state from the JAX package into the port.
 
-A ``wembed_tpu`` checkpoint (``wembed_tpu/core/checkpoint.py``) is a
-numpy ``.npz`` of the state arrays plus the weights; it reads here with
-numpy alone.  The JAX PRNG key and the span scale have no counterpart in
-the port's dense path and are ignored: the new state draws a fresh
-``torch.Generator`` from the host seed stream.
+A ``wembed_tpu`` checkpoint (``wembed_tpu/core/checkpoint.py``), flat or
+layered, is a numpy ``.npz`` of the state arrays plus the weights (and a
+layered one's layer and parent pointers); it reads here with numpy alone.
+The JAX PRNG key and the span scale have no counterpart in the port and
+are ignored: the new state draws a fresh ``torch.Generator`` from the host
+seed stream.  ``core/checkpoint.py:load_checkpoint`` restores such a file,
+or the port's own, into an embedder; by hand:
 
     arrays = load_jax_checkpoint("run.npz")
     state, weights = state_from_numpy(arrays, device="cuda", dtype=torch.float32)
@@ -22,13 +24,9 @@ from .utils import rng as rng_mod
 
 
 def load_jax_checkpoint(path: str) -> dict[str, np.ndarray]:
-    """The arrays of a flat ``wembed_tpu`` checkpoint."""
+    """The arrays of a checkpoint, flat or layered, of the JAX package or
+    of the port."""
     with np.load(path if path.endswith(".npz") else path + ".npz") as data:
-        if "layered" in data.files:
-            raise NotImplementedError(
-                "layered checkpoints are not ported yet: ROADMAP.md, Queue 1, "
-                "items 10-11"
-            )
         return {name: data[name] for name in data.files}
 
 

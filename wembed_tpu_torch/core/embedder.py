@@ -6,9 +6,15 @@ src/embeddingLib/include/embedder/EmbedderInterface.hpp:15-158):
 ``calculate_step`` runs one iteration, ``calculate_embedding`` runs the
 loop to convergence.  Graphs up to ``dense_threshold`` vertices take the
 dense path (the fused all-pairs kernel); larger ones the span path, with
-its window growth protocol (``core/span_driver.py``).  The profiled step,
-weight dumping and debug checks raise ``NotImplementedError`` naming their
-ROADMAP item.
+its window growth protocol (``core/span_driver.py``); negative sampling
+(``num_negative_samples >= 0``) takes the sampled path at any size.
+
+``profile`` (also when set after construction) splits every step into the
+reference's timed phases (``step.profiled_step``); ``opts.dump_weights``
+appends the weights to ``weight_dump.txt`` every step; with either, the
+loop is a host loop of ``calculate_step``.  ``opts.debug_checks`` raises
+``FloatingPointError`` when a state tensor goes non-finite.  Checkpoints:
+``core/checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from . import forces
 from . import step as step_mod
 from . import weights as weights_mod
 from ..kernels.span_sparse import SpanIndex, build_span_structures
-from .options import EmbedderOptions, RepulsionMode
+from .options import EmbedderOptions
 from .span_driver import SpanGrowthMixin
 from .state import DeviceGraph, EmbedState, init_state, random_positions
 
@@ -79,28 +85,21 @@ class WEmbedEmbedder(SpanGrowthMixin):
         device: torch.device | str = "cuda",
     ):
         self.opts = opts or EmbedderOptions()
-        if profile:
-            raise NotImplementedError(
-                "the profiled (phase-split) step is not ported yet: ROADMAP.md, "
-                "Queue 1, item 12"
-            )
-        if self.opts.dump_weights or self.opts.debug_checks:
-            raise NotImplementedError(
-                "dump_weights and debug_checks are not ported yet: ROADMAP.md, "
-                "Queue 1, item 2"
-            )
         self.device = resolve_device(device)
-        self._span = (
-            self.opts.resolve_repulsion_mode(graph.num_vertices) is RepulsionMode.BUCKET
-        )
+        self._path = self.opts.resolve_path(graph.num_vertices)
+        self._span = self._path == "span"
         self.graph = graph
         self.timer = timer or Timer()
         self.verbose = verbose
+        # the profiled (phase-split) step, read at every step
+        self.profile = profile
         self._dtype = torch.float64 if self.opts.dtype == "float64" else torch.float32
         self._dg = DeviceGraph.build(graph, self.device)
-        # the dense path's (n, n) adjacency; the span path never builds it
-        self._adj = None if self._span else forces.build_dense_adjacency(self._dg)
+        # the dense path's (n, n) bit adjacency; the other paths never build it
+        self._adj = forces.build_dense_adjacency(self._dg) if self._path == "dense" else None
+        # the span path's windows and the sweep's work items (``_swap_index``)
         self._index: SpanIndex | None = None
+        self._blk_t = self._items = None
         self._growth_events = 0
         self._shrink_events = 0
         n, d = graph.num_vertices, self.opts.embedding_dimension
@@ -160,7 +159,15 @@ class WEmbedEmbedder(SpanGrowthMixin):
                 state, self._weights, self._inv_w, self._dg, self._index, self._blk_t,
                 self._items, self.opts,
             )
+        if self._path == "sampled":
+            return step_mod.sampled_step(state, self._inv_w, self._dg, self.opts)
         return step_mod.fused_step(state, self._inv_w, self._adj, self._dg, self.opts)
+
+    def _profiled_step(self, state: EmbedState) -> EmbedState:
+        return step_mod.profiled_step(
+            self._path, state, self._weights, self._inv_w, self._dg, self.opts, self.timer,
+            adj=self._adj, index=self._index, blk_t=self._blk_t, items=self._items,
+        )
 
     # ------------------------------------------------------------ embedding
     def calculate_step(self) -> None:
@@ -174,14 +181,45 @@ class WEmbedEmbedder(SpanGrowthMixin):
                 pos_change=torch.zeros((), dtype=torch.float32, device=self.device),
             )
             return
-        with self.timer.phase("step", "Embedding step", self.device):
-            self._state = self._step(self._state)
+        if self.profile:
+            self._state = self._profiled_step(self._state)
+        else:
+            with self.timer.phase("step", "Embedding step", self.device):
+                self._state = self._step(self._state)
         it = self._state.iteration
+        if self.opts.debug_checks:
+            self._debug_validate()
+        if self.opts.dump_weights:
+            self._dump_weights(it)
         if self.verbose and (it == 1 or (it > 0 and it % 10 == 0)):
             print(
                 f"(Iteration {it}: #rep forces {int(self._state.num_rep_forces)}, "
                 f"relative pos change: {float(self._state.pos_change)})"
             )
+
+    def _debug_validate(self) -> None:
+        """Raise FloatingPointError if any state tensor went non-finite: the
+        runtime analogue of the reference's ASSERT / NaN-poisoning machinery
+        (DVec.hpp:89-94,693-697).  The JAX package also turns on its global
+        ``jax_debug_nans``; torch has no such switch, so the check runs after
+        every ``calculate_step`` and at the end of ``calculate_embedding``."""
+        s = self._state
+        for name in ("positions", "adam_m", "adam_v", "attract_loss", "repel_loss", "pos_change"):
+            # pos_change is inf before the first step by construction
+            if name == "pos_change" and s.iteration == 0:
+                continue
+            bad = int(torch.sum(~torch.isfinite(getattr(s, name))))
+            if bad:
+                raise FloatingPointError(
+                    f"debug_checks: {bad} non-finite entries in {name} at iteration {s.iteration}"
+                )
+
+    def _dump_weights(self, iteration: int) -> None:
+        """Append the current weights to weight_dump.txt, truncating it on
+        the first iteration (reference NewWEmbedEmbedder.cpp:161-186)."""
+        mode = "w" if iteration <= 1 else "a"
+        with open("weight_dump.txt", mode) as f:
+            f.write(" ".join(repr(float(w)) for w in self._weights_np) + " \n")
 
     def is_finished(self) -> bool:
         return self._state.iteration >= self.opts.max_iterations or (
@@ -203,16 +241,45 @@ class WEmbedEmbedder(SpanGrowthMixin):
             return
         min_change = self.opts.position_min_change
         with self.timer.phase("embedding_all", "Embedding", self.device):
-            if not self._span:
+            if self.opts.dump_weights or self.profile:
+                self._host_loop(cap)
+            elif not self._span:
                 self._state = step_mod.run_embedding(self._step, self._state, cap, min_change)
-                return
+            else:
 
-            def run_segment(seg_cap, stop_on_overflow):
-                self._state = step_mod.run_embedding(
-                    self._step, self._state, seg_cap, min_change, stop_on_overflow
-                )
+                def run_segment(seg_cap, stop_on_overflow):
+                    self._state = step_mod.run_embedding(
+                        self._step, self._state, seg_cap, min_change, stop_on_overflow
+                    )
 
-            self._drive_span_loop(run_segment, cap)
+                self._drive_span_loop(run_segment, cap)
+        if self.opts.debug_checks:
+            self._debug_validate()
+
+    def _host_loop(self, cap: int) -> None:
+        """``calculate_step`` until convergence or ``cap``: weight dumping
+        needs a host action a step (reference NewWEmbedEmbedder.cpp:36), and
+        the profiled step times each one.  Truncated span windows grow right
+        after the step that overflowed (``wembed_tpu/core/embedder.py:
+        337-364``); no segment boundaries, so windows never shrink here."""
+        while True:
+            while not self.is_finished() and self._state.iteration < cap:
+                self.calculate_step()
+                overflow = int(self._state.overflow)
+                if overflow > 0 and self._span and self._grow_spans():
+                    self._announce_growth(overflow)
+                    self._state = dataclasses.replace(
+                        self._state, overflow=torch.zeros_like(self._state.overflow)
+                    )
+            if self._state.iteration >= cap:
+                break
+            if int(self._state.overflow) == 0 or not self._span or not self._grow_spans():
+                break
+            self._state = dataclasses.replace(
+                self._state,
+                pos_change=torch.full_like(self._state.pos_change, float("inf")),
+                overflow=torch.zeros_like(self._state.overflow),
+            )
 
     # ------------------------------------------------------------- accessors
     @property
@@ -263,9 +330,10 @@ class WEmbedEmbedder(SpanGrowthMixin):
 
     @property
     def path(self) -> str:
-        """``"span"`` above ``dense_threshold`` (or under
-        ``RepulsionMode.BUCKET``), else ``"dense"``."""
-        return "span" if self._span else "dense"
+        """``"sampled"`` with negative sampling on; else ``"span"`` above
+        ``dense_threshold`` (or under ``RepulsionMode.BUCKET``), and
+        ``"dense"`` below."""
+        return self._path
 
     @property
     def growth_events(self) -> int:

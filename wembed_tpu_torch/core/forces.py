@@ -1,13 +1,19 @@
-"""The plain tensor passes of the step around the force kernel.
+"""The plain tensor passes of the step around the force kernels.
 
-Counterpart of the parts of ``wembed_tpu/core/forces.py`` that the dense
-path runs (reference src/embeddingLib/src/embedder/NewWEmbedEmbedder.cpp):
-coincident-point kick directions, the centre force, gravity recentring,
-the convergence metric, and the bit adjacency that the force kernel reads
-(built on the device, in place of the u8 matrix of
+Counterpart of ``wembed_tpu/core/forces.py`` (reference
+src/embeddingLib/src/embedder/NewWEmbedEmbedder.cpp:188-363):
+coincident-point kick directions, the attraction pass over the edges, the
+negative-sampling repulsion, the centre force, gravity recentring, the
+convergence metric, and the bit adjacency that the dense force kernel
+reads (built on the device, in place of the u8 matrix of
 ``wembed_tpu/core/step.py:287-291``).
-Attraction and repulsion themselves are one kernel,
-``kernels/fused_dense.py``.
+
+The normal dense step does attraction and repulsion in one kernel
+(``kernels/fused_dense.py``), the span step in the sweep kernel and one
+edge pass (``kernels/span_sparse.py``).  ``attraction_forces`` serves the
+profiled step and the sampled one.  The JAX package's unfused
+``dense_repulsion_forces`` has no counterpart: the profiled dense step
+runs the fused kernel with the attraction scale at 0 (``core/step.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +35,144 @@ def random_unit_vectors(
     )
     norm = torch.linalg.vector_norm(g, dim=-1, keepdim=True)
     return g / torch.where(norm > 0, norm, torch.ones_like(norm))
+
+
+def _weight_scaling(inv_w_a, inv_w_b, additive: bool):
+    return inv_w_a + inv_w_b if additive else inv_w_a * inv_w_b
+
+
+def _segment_sum(values: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    """Per-vertex sums of src-sorted directed-edge rows, one segment per
+    CSR row: deterministic run to run (no atomics).  The JAX package's
+    cumsum difference (``csr_segment_sum``) works around a serialising TPU
+    scatter and is not ported."""
+    return torch.segment_reduce(values, "sum", offsets=row_ptr, axis=0)
+
+
+def _edge_geometry(positions: torch.Tensor, src: torch.Tensor, dst: torch.Tensor):
+    """(pos[dst] - pos[src], dist2) of the directed edges (src, dst), dist2
+    summed over dimensions in ascending order as the force kernels sum it,
+    so that ``dist2 > 0`` is their own coincidence test."""
+    diff = positions[dst] - positions[src]
+    dist2 = torch.zeros_like(diff[:, 0])
+    for k in range(diff.shape[1]):
+        dist2 = dist2 + diff[:, k] * diff[:, k]
+    return diff, dist2
+
+
+def attraction_forces(
+    positions: torch.Tensor,
+    inv_w: torch.Tensor,
+    dg: DeviceGraph,
+    opts: EmbedderOptions,
+    generator: torch.Generator,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Edge SDDMM and per-vertex segment sum (``wembed_tpu/core/forces.py:
+    attraction_forces``): each directed edge (src, dst) pulls src toward dst
+    past the hinge, dist * ws > L (NewWEmbedEmbedder.cpp:188-219), into its
+    source row only.  Coincident endpoints get a random unit kick instead
+    (NewWEmbedEmbedder.cpp:197-200): one (E, d) draw from ``generator``
+    every step, selected by mask, so that no host branch (and no
+    synchronisation) decides whether any edge needs one.
+
+    Returns (force (n, d), attraction loss)."""
+    n, d = positions.shape
+    dtype = positions.dtype
+    if dg.edge_src.shape[0] == 0:
+        return torch.zeros_like(positions), torch.zeros((), dtype=dtype, device=positions.device)
+    diff, dist2 = _edge_geometry(positions, dg.edge_src, dg.edge_dst)
+    dist = torch.sqrt(dist2)
+    iw = inv_w.to(dtype)
+    ws = _weight_scaling(iw[dg.edge_src], iw[dg.edge_dst], opts.additive_weights)
+    L = float(opts.edge_length)
+    active = dist * ws > L
+    coeff = torch.where(active, opts.attraction_scale * ws / torch.clamp_min(dist, 1e-30), 0.0)
+    kicks = random_unit_vectors(generator, diff.shape[0], d, dtype)
+    force_e = torch.where((dist2 > 0)[:, None], coeff[:, None] * diff, kicks)
+    loss = torch.sum(torch.where(active, dist - L / ws, 0.0))
+    return _segment_sum(force_e, dg.row_ptr), loss
+
+
+def coincident_edge_counts(positions: torch.Tensor, dg: DeviceGraph) -> torch.Tensor:
+    """(n,) int32: each vertex's directed edges whose endpoints coincide,
+    the pairs that ``attraction_forces`` kicks."""
+    if dg.edge_src.shape[0] == 0:
+        return torch.zeros((dg.n,), dtype=torch.int32, device=positions.device)
+    _, dist2 = _edge_geometry(positions, dg.edge_src, dg.edge_dst)
+    # counts summed as floats (segment_reduce takes no integers): exact below 2^24
+    return _segment_sum((dist2 <= 0).to(dist2.dtype), dg.row_ptr).to(torch.int32)
+
+
+def _edge_membership(dg: DeviceGraph, src_ids: torch.Tensor, dst_ids: torch.Tensor) -> torch.Tensor:
+    """Vectorised areNeighbors (reference Graph.cpp:67-83): one
+    ``torch.searchsorted`` of the keys src * n + dst in the graph's sorted
+    edge keys, in place of the JAX package's fixed-depth binary search
+    within each CSR row (``wembed_tpu/core/forces.py:_edge_membership``)."""
+    keys = src_ids.to(torch.int64) * dg.n + dst_ids.to(torch.int64)
+    e = dg.edge_keys.shape[0]
+    if e == 0:
+        return torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    at = torch.searchsorted(dg.edge_keys, keys.reshape(-1)).reshape(keys.shape)
+    return (at < e) & (dg.edge_keys[torch.clamp_max(at, e - 1)] == keys)
+
+
+def sampled_repulsion_forces(
+    positions: torch.Tensor,
+    inv_w: torch.Tensor,
+    dg: DeviceGraph,
+    opts: EmbedderOptions,
+    generator: torch.Generator,
+):
+    """Negative-sampling repulsion (numNegativeSamples > 0, reference
+    NewWEmbedEmbedder.cpp:250-252,292-295): every vertex repels
+    k = min(num_negative_samples, n) uniformly drawn vertices, the forces
+    scaled by n/k.  DOCUMENTED DEVIATION, as in the JAX package: the draw is
+    with replacement (the reference's Floyd sampling is without);
+    indistinguishable for k << n, and the scaled force stays an unbiased
+    estimate of the exact all-pairs repulsion.  The draw is one (n, k)
+    ``torch.randint`` from ``generator``.
+
+    Returns (force (n, d), loss, count, zero_count (n,) int32); the caller
+    applies the kicks."""
+    n = positions.shape[0]
+    k = min(int(opts.num_negative_samples), n)
+    cand = torch.randint(0, n, (n, k), generator=generator, device=generator.device)
+    return _sampled_from_candidates(positions, inv_w, dg, opts, cand)
+
+
+def _sampled_from_candidates(
+    positions: torch.Tensor,
+    inv_w: torch.Tensor,
+    dg: DeviceGraph,
+    opts: EmbedderOptions,
+    cand: torch.Tensor,
+):
+    """The sampled pass for given (n, k) candidates: each (v, cand[v, j])
+    with different colours and not an edge counts; those inside the dead
+    zone (dist * ws <= L, dist > 0) repel with force scale * ws / dist
+    along pos_v - pos_u, scale = n / k.  The loss and the count are not
+    rescaled (``wembed_tpu/core/forces.py:sampled_repulsion_forces``)."""
+    n, d = positions.shape
+    k = cand.shape[1]
+    dtype = positions.dtype
+    L = float(opts.edge_length)
+    rid = torch.arange(n, device=positions.device)[:, None]
+    diff = positions[:, None, :] - positions[cand]  # (n, k, d)
+    dist = torch.sqrt(torch.sum(diff * diff, dim=-1))
+    iw = inv_w.to(dtype)
+    ws = _weight_scaling(iw[:, None], iw[cand], opts.additive_weights)
+    valid = (dg.colors[:, None] != dg.colors[cand]) & ~_edge_membership(dg, rid, cand)
+    in_range = (dist * ws <= L) & valid
+    active = in_range & (dist > 0)
+    scale = float(n) / float(k)
+    coeff = torch.where(
+        active, opts.repulsion_scale * ws * scale / torch.clamp_min(dist, 1e-30), 0.0
+    )
+    force = torch.sum(coeff[..., None] * diff, dim=1)
+    loss = torch.sum(torch.where(active, L / ws - dist, 0.0))
+    count = torch.sum(valid, dtype=torch.int64)
+    zero_count = torch.sum((dist <= 0) & valid, dim=1, dtype=torch.int32)
+    return force, loss, count, zero_count
 
 
 def build_dense_adjacency(dg: DeviceGraph) -> torch.Tensor:

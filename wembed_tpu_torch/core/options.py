@@ -12,10 +12,10 @@ kernel from the device of the tensors.
 ``PartitionerOptions`` are the multilevel coarsening knobs, with the
 reference's defaults.
 
-The port runs the dense path (n <= dense_threshold) and the windowed span
-path above it.  Negative sampling, a partial index (``index_size < 1``)
-and the cell layout raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+The port runs the dense path (n <= dense_threshold), the windowed span
+path above it, and negative sampling (``num_negative_samples >= 0``) at
+any size.  A partial index (``index_size < 1``) and the cell layout raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -92,16 +92,20 @@ class EmbedderOptions:
     debug_checks: bool = False
 
     def resolve_repulsion_mode(self, n: int) -> RepulsionMode:
-        """The repulsion mode for an ``n``-vertex graph, DENSE or BUCKET, or
-        raise for what the port does not run yet."""
-        if self.num_negative_samples >= 0:
-            raise NotImplementedError(
-                "negative sampling (num_negative_samples >= 0) is not ported "
-                "yet: ROADMAP.md, Queue 1, item 13"
-            )
+        """The repulsion mode for an ``n``-vertex graph, DENSE or BUCKET."""
         mode = self.repulsion_mode
         if mode is RepulsionMode.AUTO:
             mode = RepulsionMode.DENSE if n <= self.dense_threshold else RepulsionMode.BUCKET
+        return mode
+
+    def resolve_path(self, n: int) -> str:
+        """The step an ``n``-vertex graph takes: ``"sampled"`` with negative
+        sampling on, whatever the mode (``wembed_tpu/core/embedder.py:142``,
+        ``step.py:266,395``), else ``"dense"`` or ``"span"`` by the mode;
+        raise for what the port does not run yet."""
+        if self.num_negative_samples >= 0:
+            return "sampled"
+        mode = self.resolve_repulsion_mode(n)
         if mode is RepulsionMode.BUCKET:
             if self.index_size < 1.0:
                 raise NotImplementedError(
@@ -115,7 +119,8 @@ class EmbedderOptions:
                 )
             if self.span_layout not in ("auto", "windows"):
                 raise ValueError(f"unknown span_layout {self.span_layout!r}")
-        return mode
+            return "span"
+        return "dense"
 
 
 @dataclass(frozen=True)

@@ -87,6 +87,13 @@ class SpanGrowthMixin:
         self._swap_index(grown)
         return True
 
+    def _announce_growth(self, overflow: int) -> None:
+        if self.verbose:
+            print(
+                f"(growing candidate spans after overflow {overflow}; "
+                f"event {self._growth_events})"
+            )
+
     def _maybe_shrink_spans(self) -> None:
         shrunk = self._index.shrink_to_needs(self._measure_needs()[0])
         if shrunk is not None:
@@ -123,11 +130,7 @@ class SpanGrowthMixin:
                 continue
             if self._grow_spans():
                 seg_growth += 1
-                if self.verbose:
-                    print(
-                        f"(growing candidate spans after overflow {overflow}; "
-                        f"event {self._growth_events})"
-                    )
+                self._announce_growth(overflow)
             else:
                 if not stop_on_overflow:
                     break  # converged under residual truncation

@@ -27,15 +27,24 @@ class DeviceGraph:
     edge_src: torch.Tensor  # (2m,) int64, CSR row of each directed edge
     edge_dst: torch.Tensor  # (2m,) int64, CSR col_idx
     colors: torch.Tensor  # (n,) int32
+    row_ptr: torch.Tensor  # (n+1,) int64 CSR offsets
+    # (2m,) int64 sorted keys src * n + dst: neighbour membership is one
+    # searchsorted (``forces._edge_membership``)
+    edge_keys: torch.Tensor
 
     @staticmethod
     def build(g: CSRGraph, device: torch.device) -> "DeviceGraph":
+        def i64(a):
+            return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
         return DeviceGraph(
             n=g.num_vertices,
             num_edges=g.num_edges,
-            edge_src=torch.as_tensor(g.edge_src, dtype=torch.int64, device=device),
-            edge_dst=torch.as_tensor(g.col_idx, dtype=torch.int64, device=device),
+            edge_src=i64(g.edge_src),
+            edge_dst=i64(g.col_idx),
             colors=torch.as_tensor(g.colors, dtype=torch.int32, device=device),
+            row_ptr=i64(g.row_ptr),
+            edge_keys=i64(g.edge_keys),
         )
 
 

@@ -1,11 +1,10 @@
 """Host-side graph algorithms, numpy only.
 
-Counterpart of the functions of ``wembed_tpu/graphs/algorithms.py`` that
-the GIRG generator and the multilevel hierarchy need (reference GraphAlgo,
-src/graphLib/src/graph/GraphAlgorithms.cpp:12-143): connected components by
-label propagation, the largest component with its vertex mapping, and the
-contraction of a graph by cluster ids.  Same arithmetic, so the same graphs
-come out.
+Counterpart of ``wembed_tpu/graphs/algorithms.py`` (reference GraphAlgo,
+src/graphLib/src/graph/GraphAlgorithms.cpp:12-187): connected components by
+label propagation, the largest component with its vertex mapping, the
+contraction of a graph by cluster ids, and BFS hop distances.  Same
+arithmetic, so the same graphs and distances come out.
 """
 
 from __future__ import annotations
@@ -38,6 +37,14 @@ def connected_components(g: CSRGraph) -> tuple[np.ndarray, np.ndarray]:
     _, compact = np.unique(labels, return_inverse=True)
     sizes = np.bincount(compact)
     return compact.astype(np.int64), sizes.astype(np.int64)
+
+
+def num_connected_components(g: CSRGraph) -> int:
+    return int(connected_components(g)[1].shape[0])
+
+
+def is_connected(g: CSRGraph) -> bool:
+    return num_connected_components(g) <= 1
 
 
 def largest_component_with_mapping(g: CSRGraph) -> tuple[CSRGraph, np.ndarray]:
@@ -92,3 +99,32 @@ def coarsen_graph(g: CSRGraph, cluster_id: np.ndarray) -> tuple[CSRGraph, np.nda
     edge_map = -np.ones(g.num_directed_edges, dtype=np.int64)
     edge_map[inter] = inverse  # unique_keys are sorted == coarse CSR order
     return coarse, edge_map
+
+
+def bfs_distances(g: CSRGraph, origin: int) -> np.ndarray:
+    """(n,) hop distance from origin, -1 for unreachable
+    (GraphAlgorithms.cpp:145-176)."""
+    n = g.num_vertices
+    dist = -np.ones(n, dtype=np.int64)
+    dist[origin] = 0
+    frontier = np.asarray([origin], dtype=np.int64)
+    d = 0
+    row_ptr, col = g.row_ptr, g.col_idx
+    while frontier.size:
+        d += 1
+        # gather all neighbors of the frontier
+        starts, ends = row_ptr[frontier], row_ptr[frontier + 1]
+        counts = ends - starts
+        idx = np.repeat(starts, counts) + (
+            np.arange(counts.sum()) - np.repeat(np.cumsum(counts) - counts, counts)
+        )
+        nxt = np.unique(col[idx])
+        nxt = nxt[dist[nxt] == -1]
+        dist[nxt] = d
+        frontier = nxt
+    return dist
+
+
+def all_pairs_shortest_paths(g: CSRGraph) -> np.ndarray:
+    """(n, n) hop distances (GraphAlgorithms.cpp:178-187)."""
+    return np.stack([bfs_distances(g, v) for v in range(g.num_vertices)])

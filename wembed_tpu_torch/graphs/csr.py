@@ -150,3 +150,27 @@ def from_edges(
     np.cumsum(row_ptr, out=row_ptr)
     # keys are sorted by (src, dst) so dst is already per-row sorted
     return CSRGraph(row_ptr, dst, colors)
+
+
+def from_adjacency(adj: dict[int, Iterable[int]]) -> CSRGraph:
+    """Build from a {vertex: neighbors} mapping (reference Graph.cpp:85-140)."""
+    pairs = [(v, u) for v, nbrs in adj.items() for u in nbrs]
+    n = max(adj.keys(), default=-1) + 1
+    if pairs:
+        n = max(n, int(np.max([max(v, u) for v, u in pairs])) + 1)
+    return from_edges(np.asarray(pairs, dtype=np.int64).reshape(-1, 2), num_vertices=n)
+
+
+def induced_subgraph(g: CSRGraph, vertex_ids: np.ndarray) -> tuple[CSRGraph, np.ndarray]:
+    """Subgraph induced on ``vertex_ids`` with vertices relabeled 0..k-1.
+
+    Returns (subgraph, mapping new_id -> old_id).
+    """
+    vertex_ids = np.asarray(vertex_ids)
+    old_to_new = -np.ones(g.num_vertices, dtype=np.int64)
+    old_to_new[vertex_ids] = np.arange(vertex_ids.shape[0])
+    src, dst = g.edge_src, g.col_idx
+    keep = (old_to_new[src] >= 0) & (old_to_new[dst] >= 0) & (src < dst)
+    sub_edges = np.stack([old_to_new[src[keep]], old_to_new[dst[keep]]], axis=1)
+    sub = from_edges(sub_edges, num_vertices=vertex_ids.shape[0])
+    return sub, vertex_ids

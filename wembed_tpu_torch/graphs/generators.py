@@ -1,7 +1,9 @@
-"""Geometric inhomogeneous random graphs (GIRGs), numpy only.
+"""Random graph generators, numpy only: 2-D geometric graphs and
+geometric inhomogeneous random graphs (GIRGs).
 
-Counterpart of the GIRG part of ``wembed_tpu/graphs/generators.py`` (the
-reference CLI's external ``girgs`` sampler,
+Counterpart of ``wembed_tpu/graphs/generators.py`` (the reference's
+disc-intersection sampler, src/graphLib/src/graph/GeometricGraphSampler.cpp:
+10-101, and its CLI's external ``girgs`` sampler,
 src/cli_generator/GirgGenerator.cpp:10-70).  The arithmetic and the order
 of draws from the host generator are the JAX package's, so one seed gives
 the same graph, byte for byte once written.
@@ -19,6 +21,67 @@ import numpy as np
 
 from . import algorithms
 from .csr import CSRGraph, from_edges
+
+
+def geometric_graph(
+    n: int,
+    grid_size: float | None = None,
+    radius: float | None = None,
+    rng: np.random.Generator | None = None,
+) -> tuple[CSRGraph, np.ndarray]:
+    """Random 2-D disc-intersection graph, largest component only.
+
+    Defaults give average degree ~= 20: points uniform in a sqrt(n) square,
+    connect within radius sqrt(20/pi)
+    (GeometricGraphSampler.cpp:10-17).  Returns (graph, coords (k, 2)).
+    Vectorized with a cell grid instead of the reference's O(n^2) loop.
+    """
+    rng = rng or np.random.default_rng()
+    grid_size = float(grid_size if grid_size is not None else np.sqrt(n))
+    radius = float(radius if radius is not None else np.sqrt(20.0 / np.pi))
+    coords = rng.uniform(0.0, grid_size, size=(n, 2))
+
+    # bucket points into radius-sized cells; only 3x3 neighborhoods can touch
+    ncells = max(1, int(np.floor(grid_size / radius)))
+    cell_xy = np.minimum((coords / radius).astype(np.int64), ncells - 1)
+    cell = cell_xy[:, 0] * ncells + cell_xy[:, 1]
+    order = np.argsort(cell, kind="stable")
+    sorted_cell = cell[order]
+    # cell start offsets
+    starts = np.searchsorted(sorted_cell, np.arange(ncells * ncells))
+    ends = np.searchsorted(sorted_cell, np.arange(ncells * ncells) + 1)
+
+    pairs = []
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            ncell_xy = cell_xy + np.asarray([dx, dy])
+            valid = ((ncell_xy >= 0) & (ncell_xy < ncells)).all(axis=1)
+            ncell = ncell_xy[:, 0] * ncells + ncell_xy[:, 1]
+            ncell = np.where(valid, ncell, 0)
+            s, e = starts[ncell], ends[ncell]
+            s, e = np.where(valid, s, 0), np.where(valid, e, 0)
+            counts = e - s
+            total = int(counts.sum())
+            if total == 0:
+                continue
+            # flat gather of all candidate neighbors per point
+            src = np.repeat(np.arange(n), counts)
+            offs = np.arange(total) - np.repeat(np.cumsum(counts) - counts, counts)
+            dst = order[np.repeat(s, counts) + offs]
+            m = src < dst
+            src, dst = src[m], dst[m]
+            d2 = ((coords[src] - coords[dst]) ** 2).sum(axis=1)
+            m = d2 < radius * radius
+            if m.any():
+                pairs.append(np.stack([src[m], dst[m]], axis=1))
+
+    edges = np.concatenate(pairs, axis=0) if pairs else np.empty((0, 2), dtype=np.int64)
+    g = from_edges(edges, num_vertices=n)
+    sub, mapping = algorithms.largest_component_with_mapping(g)
+    return sub, coords[mapping]
+
+
+# --------------------------------------------------------------------- GIRG
 
 
 def _girg_weights(n: int, ple: float, rng: np.random.Generator) -> np.ndarray:

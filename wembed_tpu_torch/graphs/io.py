@@ -4,6 +4,8 @@ Counterpart of ``wembed_tpu/graphs/io.py``, numpy only.  Formats are
 byte-compatible with the reference:
   * edge lists — whitespace-delimited pairs, '#' comments
     (reference src/graphLib/src/graphIO/GraphIO.cpp:10-126)
+  * bipartite edge lists — '#psizes a b' header, colors 0/1
+    (GraphIO.cpp:66-126)
   * coordinate CSVs — 'id,c1,...,cd[,weight]' rows, '%' comments; values are
     written with Python ``repr`` (shortest round-trip representation), which
     preserves every bit like the reference's 17-significant-digit printf
@@ -47,12 +49,39 @@ def write_edge_list(path: str, g: CSRGraph) -> None:
             f.write(f"{u} {v}\n")
 
 
+def read_bipartite_edge_list(path: str, comment: str = "#", delimiter: str | None = None) -> CSRGraph:
+    """Read a bipartite edge list with a '#psizes a b' first line.
+
+    Vertices 0..a-1 get color 0, the rest color 1 (GraphIO.cpp:66-126); the
+    embedder never repels same-color pairs.
+    """
+    with open(path) as f:
+        header = f.readline().split(delimiter)
+        if len(header) != 3 or header[0] != "#psizes":
+            raise ValueError(f"invalid bipartite header in {path!r}: {header}")
+        a, b = int(header[1]), int(header[2])
+        pairs = []
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith(comment):
+                continue
+            tokens = line.split(delimiter)
+            if len(tokens) != 2:
+                continue
+            pairs.append((int(tokens[0]), int(tokens[1])))
+    g = from_edges(np.asarray(pairs, dtype=np.int64).reshape(-1, 2), num_vertices=a + b)
+    if g.num_vertices != a + b:
+        raise ValueError("number of vertices does not match partition sizes")
+    colors = (np.arange(a + b) >= a).astype(np.int32)
+    return g.with_colors(colors)
+
+
 def read_coordinates(path: str, comment: str = "%", delimiter: str = ",") -> np.ndarray:
     """Read a coordinate CSV: one 'id,c1,...,ck' row per vertex.
 
     Returns (n, k) float64 rows ordered by vertex id.  Ids must be
     consecutive from 0 (EmbeddingIO.cpp:110-162).  The last column may be a
-    weight — callers split it.
+    weight — callers split it (see ``split_last_column``).
     """
     rows: dict[int, list[float]] = {}
     width = -1
@@ -90,3 +119,15 @@ def write_coordinates(
                 f.write(f"{i},{row},{float(weights[i])!r}\n")
             else:
                 f.write(f"{i},{row}\n")
+
+
+def split_last_column(coords: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Split (n, k) rows into ((n, k-1) positions, (n,) weights)
+    (EmbeddingIO.cpp:164-178)."""
+    return coords[:, :-1], coords[:, -1]
+
+
+def split_first_column(coords: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Split (n, k) rows into ((n,) first column, (n, k-1) rest)
+    (EmbeddingIO.cpp:180-192)."""
+    return coords[:, 0], coords[:, 1:]

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..core.candidates import _principal_axes2, doubling_weight_buckets
-from ..core.forces import random_unit_vectors
+from ..core.forces import _edge_geometry, _segment_sum, random_unit_vectors
 from .span_sweep import Q as _Q, ST as _ST, span_sweep, work_items
 
 _GROUP_MIN = 2048  # merge doubling classes until a group has this many
@@ -636,12 +636,6 @@ def _sweep(s: SpanStructures, idx: SpanIndex, opts, items: torch.Tensor | None =
     )
 
 
-def _segment_sum(values: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
-    """Per-vertex sums of src-sorted directed-edge rows, one segment per
-    CSR row: deterministic run to run (no atomics)."""
-    return torch.segment_reduce(values, "sum", offsets=row_ptr, axis=0)
-
-
 class _EdgeTerms(NamedTuple):
     diff: torch.Tensor  # (E, d) pos[dst] - pos[src]
     dist2: torch.Tensor
@@ -661,10 +655,7 @@ def _edge_terms(positions, inv_w, colors, s: SpanStructures, idx: SpanIndex, opt
     t = idx.tensors(positions.device)
     dtype = positions.dtype
     src, dst = t.edge_src, t.edge_dst
-    diff = positions[dst] - positions[src]
-    dist2 = torch.zeros_like(diff[:, 0])
-    for k in range(diff.shape[1]):
-        dist2 = dist2 + diff[:, k] * diff[:, k]
+    diff, dist2 = _edge_geometry(positions, src, dst)
     iw = inv_w.to(dtype)
     iw_s, iw_d = iw[src], iw[dst]
     ws = iw_s + iw_d if opts.additive_weights else iw_s * iw_d

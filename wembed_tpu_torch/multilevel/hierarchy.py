@@ -22,6 +22,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..graphs.algorithms import coarsen_graph
 from ..graphs.csr import CSRGraph
 from .label_prop import CoarseningResult
 
@@ -68,6 +69,24 @@ class GraphHierarchy:
                 np.add.at(agg, parent, contained)
                 contained = agg
         return GraphHierarchy(layers=tuple(layers))
+
+    @staticmethod
+    def from_parents(graph: CSRGraph, parents: list[np.ndarray]) -> "GraphHierarchy":
+        """The hierarchy of ``graph`` whose layer i maps into layer i + 1 by
+        ``parents[i]``: each coarser graph contracted from the finer one by
+        ``coarsen_graph``, as the coarsening itself contracts them (a
+        checkpoint's restore, ``core/checkpoint.py``)."""
+        graphs = [graph]
+        for i, parent in enumerate(parents):
+            if parent.shape[0] != graphs[-1].num_vertices:
+                raise ValueError(
+                    f"parent pointers of layer {i} cover {parent.shape[0]} vertices, the "
+                    f"layer has {graphs[-1].num_vertices}: another finest graph?"
+                )
+            graphs.append(coarsen_graph(graphs[-1], parent)[0])
+        return GraphHierarchy.build(
+            CoarseningResult(parent_pointers=[np.asarray(p) for p in parents], graphs=graphs)
+        )
 
     def num_siblings(self, layer_index: int) -> np.ndarray:
         """For each vertex of ``layer_index``, how many finest-layer

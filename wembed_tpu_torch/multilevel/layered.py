@@ -22,7 +22,8 @@ run starts every layer where the JAX package's does.
 
 ``layer_records`` holds one ``LayerRecord`` a layer, filled when the
 layer's loop ends, by ``calculate_embedding`` or step by step;
-``hierarchy_seconds`` is the coarsening time.
+``hierarchy_seconds`` is the coarsening time.  A checkpoint
+(``core/checkpoint.py``) restores mid-hierarchy through ``restore_layer``.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ class LayerRecord:
 
     layer: int  # hierarchy index; 0 is the input graph
     n: int
-    path: str  # "dense" or "span"
+    path: str  # "dense", "span" or "sampled"
     construct_s: float  # building the layer's embedder (span presize included)
     loop_s: float = 0.0  # from the layer's first step to the end of its last
     iterations: int = 0
@@ -98,6 +99,7 @@ class LayeredEmbedder:
         self.timer = timer or Timer()
         self.expansion_mode = expansion_mode
         self.verbose = verbose
+        self._current = None
         self.profile = profile
         self.embedder_factory = embedder_factory
         self.layer_records: list[LayerRecord] = []
@@ -112,6 +114,39 @@ class LayeredEmbedder:
         self._current = self._make_embedder(
             self.hierarchy.layers[self.current_layer].graph
         )
+
+    @property
+    def profile(self) -> bool:
+        """The profiled step, passed to every layer's embedder; setting it
+        reaches the current layer's too (the ``embed`` CLI sets it after
+        construction)."""
+        return self._profile
+
+    @profile.setter
+    def profile(self, on: bool) -> None:
+        self._profile = on
+        if self._current is not None:
+            self._current.profile = on
+
+    def restore_layer(
+        self,
+        hierarchy: GraphHierarchy,
+        layer: int,
+        iteration: int,
+        positions: np.ndarray,
+        weights: np.ndarray,
+    ) -> None:
+        """Install ``hierarchy`` and rebuild layer ``layer``'s embedder at
+        ``positions`` and ``weights``, with the accumulated ``iteration``
+        count: a checkpoint's restore (``core/checkpoint.py``), which then
+        restores that embedder's state.  ``layer_records`` start again at
+        this layer."""
+        self.hierarchy = hierarchy
+        self.current_layer = layer
+        self.current_iteration = iteration
+        self.layer_records = []
+        self._current = None
+        self._current = self._make_embedder(hierarchy.layers[layer].graph, positions, weights)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

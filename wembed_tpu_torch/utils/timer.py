@@ -5,7 +5,9 @@ util::Timer (reference: src/utilLib/include/Timings.hpp:25-57,
 src/utilLib/src/Timings.cpp:9-78): a stack of named phases accumulating a
 tree of (depth, display name, seconds).  A phase opened with a CUDA
 ``device`` synchronises that device before it stops, so the time covers
-the kernels the phase enqueued and not only their launch.
+the kernels the phase enqueued and not only their launch.  ``add`` books a
+duration measured elsewhere (the profiled step's CUDA events) as a phase
+under the open ones.
 """
 
 from __future__ import annotations
@@ -58,6 +60,12 @@ class Timer:
         parent = self._stack[-1][0] if self._stack else self._root
         node = parent.child(key, display_name or key)
         self._stack.append((node, time.perf_counter()))
+
+    def add(self, key: str, seconds: float, display_name: str | None = None) -> None:
+        """Add ``seconds`` to phase ``key`` under the current stack, as if it
+        had been started and stopped there."""
+        parent = self._stack[-1][0] if self._stack else self._root
+        parent.child(key, display_name or key).value += seconds
 
     def stop(self, key: str, device: torch.device | None = None) -> None:
         """Close phase ``key``; with a CUDA ``device``, wait for its queue first."""
