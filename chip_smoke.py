@@ -74,11 +74,39 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      every step's candidate count within [0.99 n k, n k], MAP and F1
      printed.
 
+And the general kernels, the partial index and the replicated backend:
+  3b. the general dense kernel (f32 at d = 16 and 33, f64 at d = 2 and 16)
+      against its plain version on synthetic cases and girg10k positions
+      (timed at d=16 f32 and d=2 f64; the d=16 positions after 20 steps
+      crowded about their centroid until pairs repel), every case with
+      candidate pairs, and the row range [3000, 7000) of girg10k bitwise
+      the whole launch's rows (fast kernel and f64);
+  7b. girg10k at d=16 to convergence (the general dense kernel), 20 steps
+      of girg10k on the span path at d=16 (the general sweep, then timed
+      at its positions crowded as in 3b), girg10k in f64 to convergence
+      within the loss and MAP limits, f64 on the card against the CPU (3
+      steps, n = 3,200, dense and span, rtol 1e-9);
+  9b. the general sweep at the same (d, dtype) pairs on synthetic cases;
+  14. girg100k in f64 (the sweep timed at iteration 20, then to
+      convergence within the limits), with ``index_size=0.5`` (exact
+      sample sizes every step, overflow 0, MAP printed, bitwise resume);
+      then the replicated backend, last, so that no earlier phase runs
+      beside its NCCL group: the API with ``distributedMode="replicated"``
+      on one NCCL rank bitwise phase 4's and phase 10's runs (layered:
+      phase 11's layers and MAP), ``embed --distributed replicated`` under
+      ``torch.distributed.run`` writing phase 5's CSV, and girg10k and
+      girg100k on two ranks sharing the card over gloo (each rank's share
+      and launches, the step time, the first step's reduced force against
+      the single-device step, ranks identical, the loss and MAP limits;
+      the all-reduce's share from a separate timed run of 50 steps).
+
 Every kernel comparison also launches the kernel twice on the same inputs
-and fails unless the two outputs are bitwise equal.  The line before the
-last is a JSON summary of the kernels (time, bound, launches on the main
-paths: flat, layered, profiled and resumed); the last line is ``{"ok": true, "device":
-{...}}``.  Imports nothing of JAX.
+and fails unless the two outputs are bitwise equal.  The main paths must
+launch the fast kernels only.  The line before the last is a JSON summary
+of the kernels (time, bound, launches on the main paths: flat, layered,
+profiled, resumed, the general kernels' runs, replicated and with a
+partial index; the general kernels' times); the last line is ``{"ok":
+true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -105,8 +133,10 @@ LOSS_FACTOR = 1.15  # total loss may exceed the C++ reference's by at most this
 FORCE_RTOL = 1e-5  # summation order differs between the kernel and the plain version
 FORCE_ATOL = 1e-5  # times max|force|
 LOSS_RTOL = 1e-5
+F64_RTOL = 1e-12  # the same in f64: forces (rtol and atol x max|force|) and losses
 COMPARE_STEPS = 20
 F32_FLOPS = 67e12  # H100 SXM FP32 peak outside the tensor cores (data sheet)
+F64_FLOPS = 34e12  # H100 SXM FP64 peak outside the tensor cores (data sheet)
 HBM_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 RARE_FLOP = 14  # FLOP of a candidate or neighbour pair beyond the common path
 SPILL_FREE_DIMS = (1, 2, 3, 4)
@@ -126,6 +156,7 @@ RESUME_LAYER_N = 18190  # girg100k's first span layer (seed 1, default partition
 PHASES = ("attracting_forces", "repelling_forces", "apply_forces", "gravity", "position_change")
 NEGATIVE_SAMPLES = 10
 DEBUG_STEPS = 20
+REDUCE_STEPS = 50  # steps of the two-rank run that times its all-reduce
 
 
 def check(cond: bool, msg: str) -> None:
@@ -149,9 +180,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flop: float, nbytes: float) -> tuple[float, str]:
-    """(least ms the card could take, "operations" or "bytes")."""
-    ops_ms, bytes_ms = flop / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+def bound(flop: float, nbytes: float, f64: bool = False) -> tuple[float, str]:
+    """(least ms the card could take, "operations" or "bytes"), the
+    operations at the FP32 or FP64 rate outside the tensor cores."""
+    ops_ms, bytes_ms = flop / (F64_FLOPS if f64 else F32_FLOPS) * 1e3, nbytes / HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -194,25 +226,36 @@ def same_twice(name: str, first, fn) -> None:
 
 
 def forces_agree(f_k, f_p) -> tuple[bool, float, float]:
-    """(every entry within FORCE_RTOL + FORCE_ATOL x max|force|, max abs
-    error, max|force|) of a kernel's forces against the plain version's."""
+    """(every entry within FORCE_RTOL + FORCE_ATOL x max|force|, F64_RTOL
+    for both in f64, max abs error, max|force|) of a kernel's forces
+    against the plain version's."""
     import torch
 
-    scale = float(f_p.abs().max())
+    rtol, atol = (F64_RTOL, F64_RTOL) if f_p.dtype == torch.float64 else (FORCE_RTOL, FORCE_ATOL)
+    scale = float(f_p.abs().max()) if f_p.numel() else 0.0
     diff = (f_k - f_p).abs()
-    ok = bool(torch.all(diff <= FORCE_ATOL * scale + FORCE_RTOL * f_p.abs()))
-    return ok, float(diff.max()), scale
+    ok = bool(torch.all(diff <= atol * scale + rtol * f_p.abs()))
+    return ok, float(diff.max()) if diff.numel() else 0.0, scale
 
 
-def synthetic_case(n, d, *, additive=False, bipartite=False, coincident=False, grid=False, edges=True, seed=0):
-    """Inputs for the kernel comparison, as CUDA tensors."""
+def losses_agree(k: float, p: float, dtype) -> bool:
+    import torch
+
+    return abs(k - p) <= (F64_RTOL if dtype == torch.float64 else LOSS_RTOL) * abs(p)
+
+
+def synthetic_case(n, d, *, additive=False, bipartite=False, coincident=False, grid=False, edges=True,
+                   seed=0, dtype=None, spread=1.0):
+    """Inputs for the kernel comparison, as CUDA tensors (f32 unless
+    ``dtype``), in the random-start cube times ``spread``."""
     import numpy as np
     import torch
 
     from wembed_tpu_torch.kernels.fused_dense import adjacency_bits
 
+    dtype = dtype or torch.float32
     rng = np.random.default_rng(seed)
-    side = n ** (1.0 / d)
+    side = n ** (1.0 / d) * spread
     if grid:  # multiples of 1/64: every difference and square is exact
         pos = rng.integers(0, int(side) * 64, size=(n, d)) / 64.0
     else:
@@ -229,16 +272,17 @@ def synthetic_case(n, d, *, additive=False, bipartite=False, coincident=False, g
         src, dst = np.r_[src[keep], dst[keep]], np.r_[dst[keep], src[keep]]
     dev = torch.device("cuda")
     return dict(
-        pos=torch.tensor(pos, dtype=torch.float32, device=dev),
-        invw=torch.tensor(invw, dtype=torch.float32, device=dev),
+        pos=torch.tensor(pos, dtype=dtype, device=dev),
+        invw=torch.tensor(invw, dtype=dtype, device=dev),
         colors=torch.tensor(colors, dtype=torch.int32, device=dev),
         adj=adjacency_bits(torch.tensor(src, device=dev), torch.tensor(dst, device=dev), n),
         additive=additive, edges=int(src.shape[0]),
     )
 
 
-def girg10k_case():
-    """girg10k, d=2, degree weights, positions after COMPARE_STEPS seeded steps."""
+def girg10k_case(dim=2, dtype=None):
+    """girg10k, degree weights, positions after COMPARE_STEPS seeded f32
+    steps at dimension ``dim``, as ``dtype`` (default f32)."""
     import torch
 
     from wembed_tpu_torch import api
@@ -246,16 +290,17 @@ def girg10k_case():
     from wembed_tpu_torch.core.state import DeviceGraph
     from wembed_tpu_torch.core.weights import inv_exp_weights
 
+    dtype = dtype or torch.float32
     api.setSeed(1)
     graph = api.graphFromEdgeListFile(str(GIRG10K))
-    embedder = api.createEmbedder(graph, api.Options(embeddingDimension=2))
+    embedder = api.createEmbedder(graph, api.Options(embeddingDimension=dim))
     for _ in range(COMPARE_STEPS):
         embedder.calculateStep()
     dev = torch.device("cuda")
     dg = DeviceGraph.build(graph.csr, dev)
     return dict(
-        pos=torch.tensor(embedder.impl.get_coordinates(), dtype=torch.float32, device=dev),
-        invw=torch.tensor(inv_exp_weights(embedder.impl.get_weights(), 2), dtype=torch.float32, device=dev),
+        pos=torch.tensor(embedder.impl.get_coordinates(), dtype=dtype, device=dev),
+        invw=torch.tensor(inv_exp_weights(embedder.impl.get_weights(), dim), dtype=dtype, device=dev),
         colors=dg.colors,
         adj=forces.build_dense_adjacency(dg),
         additive=False, edges=graph.getNumEdges() * 2,
@@ -295,9 +340,12 @@ def compare(name: str, case: dict, timed: bool) -> dict:
     from wembed_tpu_torch.kernels import fused_dense
 
     n, d = case["pos"].shape
+    dtype = case["pos"].dtype
     args = (case["pos"], case["invw"], case["colors"], case["adj"])
     kw = dict(dim=d, L=1.0, att_scale=1.0, rep_scale=1.0, additive=case["additive"])
+    general = fused_dense.fused_dense_forces.launches_general
     out = fused_dense.fused_dense_forces(*args, **kw)
+    general = fused_dense.fused_dense_forces.launches_general - general
     f_k, z_k, a_k, r_k, c_k = out
     torch.cuda.synchronize()
     same_twice(name, out, lambda: fused_dense.fused_dense_forces(*args, **kw))
@@ -305,26 +353,87 @@ def compare(name: str, case: dict, timed: bool) -> dict:
     torch.cuda.synchronize()
     ok_force, err, scale = forces_agree(f_k, f_p)
     row = dict(
-        case=name, n=case["pos"].shape[0], d=d,
+        case=name, n=case["pos"].shape[0], d=d, dtype=str(dtype).split(".")[1],
+        kernel="general" if general else "fast",
         rep_count=[int(c_k), int(c_p)], zero_sum=[int(z_k.sum()), int(z_p.sum())],
         att_loss=[float(a_k), float(a_p)], rep_loss=[float(r_k), float(r_p)],
         max_abs_force=scale, max_abs_err=err,
-        splits=fused_dense._split_cache.get((n, d, case["pos"].device.index)),
+        splits=None if general else fused_dense._split_cache.get((n, d, case["pos"].device.index)),
     )
     if timed:
         row["ms"] = cuda_ms(lambda: fused_dense.fused_dense_forces(*args, **kw), 50)
         row["plain_ms"] = cuda_ms(lambda: fused_dense.fused_dense_forces_reference(*args, **kw), 5)
         # every pair's common path, plus the rare path of candidates and neighbours
         flop = n * n * (3 * d + 3) + (int(c_p) + case["edges"]) * RARE_FLOP
-        row["bound_ms"], row["bound_by"] = bound(flop, nbytes(*args, f_k, z_k) + 16)
+        row["bound_ms"], row["bound_by"] = bound(
+            flop, nbytes(*args, f_k, z_k) + 16, f64=dtype == torch.float64
+        )
     print("compare " + json.dumps(row))
     check(int(c_k) == int(c_p), f"{name}: rep count {int(c_k)} != {int(c_p)}")
     check(bool(torch.equal(z_k, z_p)), f"{name}: zero counts differ")
     check(ok_force, f"{name}: forces differ by up to {err} (max|force| {scale})")
     for label, k, p in (("att", a_k, a_p), ("rep", r_k, r_p)):
         k, p = float(k), float(p)
-        check(abs(k - p) <= LOSS_RTOL * abs(p), f"{name}: {label} loss {k} != {p}")
+        check(losses_agree(k, p, dtype), f"{name}: {label} loss {k} != {p}")
     return row
+
+
+def compare_rows(name: str, case: dict, rows: tuple[int, int]) -> dict:
+    """A row range of the dense kernel: bitwise the rows of the whole
+    launch, and in agreement with the plain version's range."""
+    import torch
+
+    from wembed_tpu_torch.kernels import fused_dense
+
+    d = case["pos"].shape[1]
+    args = (case["pos"], case["invw"], case["colors"], case["adj"])
+    kw = dict(dim=d, L=1.0, att_scale=1.0, rep_scale=1.0, additive=case["additive"])
+    whole = fused_dense.fused_dense_forces(*args, **kw)
+    part = fused_dense.fused_dense_forces(*args, **kw, rows=rows)
+    plain = fused_dense.fused_dense_forces_reference(*args, **kw, rows=rows)
+    torch.cuda.synchronize()
+    r0, r1 = rows
+    bitwise = bool(torch.equal(part[0], whole[0][r0:r1]) and torch.equal(part[1], whole[1][r0:r1]))
+    ok_force, err, scale = forces_agree(part[0], plain[0])
+    row = dict(case=name, rows=list(rows), d=d, dtype=str(case["pos"].dtype).split(".")[1],
+               bitwise_equal_to_whole=bitwise, rep_count=[int(part[4]), int(plain[4])],
+               max_abs_err=err, max_abs_force=scale)
+    print("compare_rows " + json.dumps(row))
+    check(bitwise, f"{name}: rows {rows} differ from the whole launch's")
+    check(int(part[4]) == int(plain[4]) and bool(torch.equal(part[1], plain[1])),
+          f"{name}: the range's counts differ from the plain version's")
+    check(ok_force, f"{name}: the range's forces differ by up to {err}")
+    return row
+
+
+def crowd_scale(pos, invw, colors, adj, additive=False) -> float:
+    """The largest 0.8^k by which ``pos`` scaled about its centroid gives
+    at least n candidate pairs in the plain dense version.  At d=16 the
+    first steps spread girg10k beyond every radius, so its positions are
+    crowded for the general kernels' comparisons to run their candidate
+    path at the main path's shapes."""
+    from wembed_tpu_torch.kernels import fused_dense
+
+    n, d = pos.shape
+    kw = dict(dim=d, L=1.0, att_scale=1.0, rep_scale=1.0, additive=additive)
+    scale = 1.0
+    for _ in range(60):
+        count = int(fused_dense.fused_dense_forces_reference(about_centre(pos, scale), invw, colors, adj, **kw)[4])
+        if count >= n:
+            return scale
+        scale *= 0.8
+    check(False, "no scale of the positions gives candidate pairs")
+
+
+def about_centre(pos, scale: float):
+    centre = pos.mean(0, keepdim=True)
+    return centre + (pos - centre) * scale
+
+
+def crowd(case: dict) -> dict:
+    """``case`` at the positions ``crowd_scale`` picks."""
+    scale = crowd_scale(case["pos"], case["invw"], case["colors"], case["adj"], case["additive"])
+    return dict(case, pos=about_centre(case["pos"], scale), scale=scale)
 
 
 def evaluate_embedding(csr, coords, weights, seed: int = 1) -> dict:
@@ -466,6 +575,7 @@ def layered_main_path(graph, flat_map: float) -> dict:
         peak_mem_bytes=max(r.peak_mem_bytes for r in records), flat_map=flat_map, **quality,
     )
     print("main_path_layered " + json.dumps(row))
+    row["layer_tuples"] = [(r.n, r.path, r.iterations, r.launches, r.growth_events) for r in records]
     for r in records:
         check(0 < r.iterations < 1000, f"layer n={r.n}: {r.iterations} iterations")
         check(r.final_overflow == 0, f"layer n={r.n}: final overflow {r.final_overflow}")
@@ -553,10 +663,11 @@ def span_case(positions, inv_w, weights, colors, idx, opts, k=None):
 
 
 def synthetic_span_case(n, d, *, additive=False, bipartite=False, coincident=False,
-                        starved=False, seed=0):
+                        starved=False, seed=0, dtype=None, spread=1.0):
     """A random graph with heavy-tailed weights at positions in the random-
-    start cube; windows sized to the measured needs, or pinned to one tile
-    at spread positions (``starved``)."""
+    start cube times ``spread``, as ``dtype`` (default f32); windows sized
+    to the measured needs, or pinned to one tile at spread positions
+    (``starved``)."""
     import numpy as np
     import torch
 
@@ -565,8 +676,9 @@ def synthetic_span_case(n, d, *, additive=False, bipartite=False, coincident=Fal
     from wembed_tpu_torch.graphs import from_edges
     from wembed_tpu_torch.kernels import span_sparse
 
+    dtype = dtype or torch.float32
     rng = np.random.default_rng(seed)
-    pos = rng.uniform(0.0, n ** (1.0 / d), size=(n, d)) * (100.0 if starved else 1.0)
+    pos = rng.uniform(0.0, n ** (1.0 / d), size=(n, d)) * (100.0 if starved else spread)
     if coincident:
         pos[1::7] = pos[0::7][: pos[1::7].shape[0]]
     w = rng.pareto(2.0, n) + 1.0
@@ -576,32 +688,42 @@ def synthetic_span_case(n, d, *, additive=False, bipartite=False, coincident=Fal
     idx = span_sparse.SpanIndex.build(w, opts, g.edge_src, g.col_idx)
     dev = torch.device("cuda")
     tensors = (
-        torch.tensor(pos, dtype=torch.float32, device=dev),
-        torch.tensor(inv_exp_weights(w, d), dtype=torch.float32, device=dev),
-        torch.tensor(w, dtype=torch.float32, device=dev),
+        torch.tensor(pos, dtype=dtype, device=dev),
+        torch.tensor(inv_exp_weights(w, d), dtype=dtype, device=dev),
+        torch.tensor(w, dtype=dtype, device=dev),
         torch.tensor(colors, dtype=torch.int32, device=dev),
     )
     if starved:
-        idx = idx._with_blk_t(np.minimum(idx.blk_t, 1))
-    else:
-        for _ in range(6):
-            s = span_sparse.build_span_structures(*tensors, idx, opts)
-            grown = idx.grow_from_needs(s.need.cpu().numpy())
-            if int(s.overflow) == 0 or grown is None:
-                break
-            idx = grown
+        return span_case(*tensors, idx._with_blk_t(np.minimum(idx.blk_t, 1)), opts)
+    return sized_span_case(tensors, idx, opts)
+
+
+def sized_span_case(tensors, idx, opts):
+    """``span_case`` with the windows grown to the needs of the positions
+    (positions, inverse weights, weights, colours)."""
+    from wembed_tpu_torch.kernels import span_sparse
+
+    for _ in range(6):
+        s = span_sparse.build_span_structures(*tensors, idx, opts)
+        grown = idx.grow_from_needs(s.need.cpu().numpy())
+        if int(s.overflow) == 0 or grown is None:
+            break
+        idx = grown
     return span_case(*tensors, idx, opts)
 
 
 def compare_span(name: str, case: dict, timed: bool) -> dict:
     """The span sweep kernel against its plain version on the same CUDA
-    tensors."""
+    tensors; some pair must be a candidate."""
     import torch
 
     from wembed_tpu_torch.kernels import span_sweep
 
     args, kw = case["args"], case["kw"]
+    dtype = args[0].dtype
+    general = span_sweep.span_sweep.launches_general
     out = span_sweep.span_sweep(*args, **kw)
+    general = span_sweep.span_sweep.launches_general - general
     f_k, l_k, c_k, z_k = out
     torch.cuda.synchronize()
     same_twice(name, out, lambda: span_sweep.span_sweep(*args, **kw))
@@ -610,7 +732,8 @@ def compare_span(name: str, case: dict, timed: bool) -> dict:
     ok_force, err, scale = forces_agree(f_k, f_p)
     loss_k, loss_p = float(l_k.double().sum()), float(l_p.double().sum())
     row = dict(
-        case=name, n=case["n"], d=kw["dim"], work_tiles=case["tiles"], items=case["items"],
+        case=name, n=case["n"], d=kw["dim"], dtype=str(dtype).split(".")[1],
+        kernel="general" if general else "fast", work_tiles=case["tiles"], items=case["items"],
         overflow=case["overflow"],
         rep_count=[int(c_k.sum()), int(c_p.sum())], zero_sum=[int(z_k.sum()), int(z_p.sum())],
         rep_loss=[loss_k, loss_p], max_abs_force=scale, max_abs_err=err,
@@ -621,12 +744,14 @@ def compare_span(name: str, case: dict, timed: bool) -> dict:
         # every (slot, member) pair of the work tiles, plus the candidates' rare path
         d = kw["dim"]
         flop = case["tiles"] * span_sweep.Q * span_sweep.ST * (3 * d + 1) + int(c_p.sum()) * RARE_FLOP
-        row["bound_ms"], row["bound_by"] = bound(flop, nbytes(*args, kw["items"], *out))
+        row["bound_ms"], row["bound_by"] = bound(
+            flop, nbytes(*args, kw["items"], *out), f64=dtype == torch.float64
+        )
     print("compare_span " + json.dumps(row))
     check(bool(torch.equal(c_k, c_p)), f"{name}: candidate counts differ")
     check(bool(torch.equal(z_k, z_p)), f"{name}: zero counts differ")
     check(ok_force, f"{name}: forces differ by up to {err} (max|force| {scale})")
-    check(abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p), f"{name}: loss {loss_k} != {loss_p}")
+    check(losses_agree(loss_k, loss_p, dtype), f"{name}: loss {loss_k} != {loss_p}")
     check(int(c_p.sum()) > 0, f"{name}: no candidate pairs")
     return row
 
@@ -760,16 +885,21 @@ def same_state(a, b) -> bool:
     return all(torch.equal(getattr(a, k), getattr(b, k)) for k in names)
 
 
-def flat_resume(name: str, graph, kernel: str, tmp: Path) -> dict:
+def flat_resume(name: str, graph, kernel: str, tmp: Path, make=None) -> dict:
     """``calculate_embedding`` capped at RESUME_CAP, a checkpoint, then on
     to convergence; a fresh embedder from another seed loads the file and
     continues.  Final state, iterations, growth events and ``kernel``'s
-    launches after the checkpoint must be equal, bit for bit."""
+    launches after the checkpoint must be equal, bit for bit.  ``make()``
+    builds each embedder (default: the API's, d=2)."""
     from wembed_tpu_torch import api
     from wembed_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
 
+    if make is None:
+        def make():
+            return api.createEmbedder(graph, api.Options(embeddingDimension=2)).impl
+
     api.setSeed(1)
-    saved = api.createEmbedder(graph, api.Options(embeddingDimension=2)).impl
+    saved = make()
     saved.calculate_embedding(max_iterations=RESUME_CAP)
     path = str(tmp / f"{name}.npz")
     t0 = time.perf_counter()
@@ -777,7 +907,7 @@ def flat_resume(name: str, graph, kernel: str, tmp: Path) -> dict:
     save_s = time.perf_counter() - t0
     saved_wall, saved_launches = continue_run(saved)
     api.setSeed(2)
-    resumed = api.createEmbedder(graph, api.Options(embeddingDimension=2)).impl
+    resumed = make()
     t0 = time.perf_counter()
     load_checkpoint(path, resumed)
     load_s = time.perf_counter() - t0
@@ -958,6 +1088,354 @@ def debug_checks_run(graph) -> dict:
     return row
 
 
+def map_only(csr, coords, weights) -> float:
+    """Reconstruction MAP (NODE_SAMPLES vertices ranked on the card, the
+    evaluator's stream for seed 1): the same number ``evaluate_embedding``
+    gives, without its host-bound edge detection."""
+    import numpy as np
+
+    from wembed_tpu_torch.eval import reconstruction_metrics
+    from wembed_tpu_torch.eval.spaces import WeightedGeometric
+
+    space = WeightedGeometric(coords, weights=weights)
+    return reconstruction_metrics(csr, space, NODE_SAMPLES, np.random.default_rng(1), device="cuda")["MAP"]
+
+
+def general_launches() -> dict:
+    from wembed_tpu_torch.kernels import fused_dense, span_sweep
+
+    return dict(fused_dense=fused_dense.fused_dense_forces.launches_general,
+                span_sweep=span_sweep.span_sweep.launches_general)
+
+
+def converge(name: str, impl, graph, kernel: str, ref_total: float | None = None,
+             map_floor: float | None = None, cap: int | None = None, below_cap: bool = True) -> dict:
+    """``calculate_embedding`` (to ``cap`` iterations when given) with the
+    launch counts set to 0 just before and read just after; finite state,
+    final overflow 0 and one launch of ``kernel`` a step, then (unless
+    ``cap`` is given or ``below_cap`` is False) convergence below 1000
+    iterations, the loss limit and the MAP floor where given."""
+    import torch
+
+    it0 = impl.iteration
+    reset_launches()
+    general = general_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    impl.calculate_embedding(max_iterations=cap)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    general = {k: v - general[k] for k, v in general_launches().items()}
+    loss = impl.get_loss()
+    row = dict(
+        run=name, n=graph.getNumVertices(), d=impl.embedding_dimension,
+        dtype=str(impl.state.positions.dtype).split(".")[1], path=impl.path,
+        iterations=impl.iteration, launches=launches, launches_general=general,
+        growth_events=impl.growth_events, final_overflow=impl.final_overflow,
+        att_loss=loss.attractive, rep_loss=loss.repulsive, total_loss=loss.total,
+        reference_total_loss=ref_total, wall_s=wall,
+        step_ms=wall * 1000.0 / max(impl.iteration - it0, 1),
+    )
+    row["MAP"] = map_only(graph.csr, impl.get_coordinates(), impl.get_weights())
+    print(f"{name} " + json.dumps(row))
+    check_finite(impl.state, f"in {name}")
+    check(impl.final_overflow == 0, f"{name}: final overflow {impl.final_overflow}")
+    steps = impl.iteration - it0
+    check(launches[kernel] == steps > 0, f"{name}: {launches[kernel]} launches for {steps} steps")
+    if cap is None and below_cap:
+        check(impl.iteration < 1000, f"{name}: {impl.iteration} iterations")
+    if ref_total is not None:
+        check(loss.total <= LOSS_FACTOR * ref_total, f"{name}: total loss {loss.total} > {LOSS_FACTOR} x {ref_total}")
+    if map_floor is not None:
+        check(row["MAP"] >= map_floor, f"{name}: MAP {row['MAP']} < {map_floor}")
+    return row
+
+
+def f64_card_against_cpu(steps: int = 3) -> list[dict]:
+    """A 3,000-vertex GIRG in f64, ``steps`` steps on the card (the general
+    kernels) against the port's CPU run from the same coordinates, on the
+    dense and the span path: positions and losses within rtol 1e-9, counts
+    equal."""
+    import numpy as np
+    import torch
+
+    from wembed_tpu_torch.core import EmbedderOptions, RepulsionMode, WEmbedEmbedder
+    from wembed_tpu_torch.graphs import generators
+    from wembed_tpu_torch.utils import set_seed
+
+    g = generators.girg(3200, dim=2, avg_degree=12, ple=2.5, rng=np.random.default_rng(3))[0]
+    coords = np.random.default_rng(4).uniform(0, g.num_vertices ** 0.5, size=(g.num_vertices, 2))
+    rows = []
+    for mode in (RepulsionMode.DENSE, RepulsionMode.BUCKET):
+        opts = EmbedderOptions(embedding_dimension=2, dtype="float64", repulsion_mode=mode)
+        runs = []
+        for device in ("cuda", "cpu"):
+            set_seed(1)
+            emb = WEmbedEmbedder(g, opts, initial_coordinates=coords, verbose=False, device=device)
+            for _ in range(steps):
+                emb.calculate_step()
+            runs.append(emb)
+        card, cpu = runs
+        err = float(np.max(np.abs(card.get_coordinates() - cpu.get_coordinates())
+                           / np.maximum(np.abs(cpu.get_coordinates()), 1e-300)))
+        row = dict(n=g.num_vertices, path=card.path, steps=steps, max_rel_err=err,
+                   rep_count=[int(card.state.num_rep_forces), int(cpu.state.num_rep_forces)],
+                   total_loss=[card.get_loss().total, cpu.get_loss().total],
+                   overflow=[card.final_overflow, cpu.final_overflow])
+        print("f64_card_cpu " + json.dumps(row))
+        np_ok = np.allclose(card.get_coordinates(), cpu.get_coordinates(), rtol=1e-9, atol=1e-9)
+        check(np_ok, f"f64 {card.path}: the card's positions differ from the CPU's by {err}")
+        check(row["rep_count"][0] == row["rep_count"][1] > 0, f"f64 {card.path}: counts {row['rep_count']}")
+        for a, b in ((card.get_loss().attractive, cpu.get_loss().attractive),
+                     (card.get_loss().repulsive, cpu.get_loss().repulsive)):
+            check(abs(a - b) <= 1e-9 * abs(b), f"f64 {card.path}: losses {a} != {b}")
+        check(card.state.positions.dtype == torch.float64 and card.device.type == "cuda", "f64 run not on the card")
+        rows.append(row)
+    return rows
+
+
+def partial_index_run(graph, tmp: Path) -> dict:
+    """girg100k d=2 with ``index_size=0.5`` to convergence: every step's
+    member sample has each class's exact size (counted on the card, read
+    once at the end), final overflow 0, loss and MAP printed with no
+    limit; then a checkpoint resume at RESUME_CAP, bitwise."""
+    import torch
+
+    from wembed_tpu_torch.core import EmbedderOptions, WEmbedEmbedder
+    from wembed_tpu_torch.kernels import span_sparse
+
+    def make():
+        return WEmbedEmbedder(graph.csr, EmbedderOptions(embedding_dimension=2, index_size=0.5), verbose=False)
+
+    from wembed_tpu_torch import api
+
+    api.setSeed(1)
+    impl = make()
+    check(impl.path == "span" and impl._index.partial, "index_size=0.5 is not a partial span index")
+    tallies = []
+    draw = span_sparse.SpanIndex.draw_members
+
+    def counting_draw(index, generator):
+        member = draw(index, generator)
+        t = index.tensors(generator.device)
+        tallies.append((torch.bincount(t.class_of[member], minlength=t.class_take.shape[0]), t.class_take))
+        return member
+
+    span_sparse.SpanIndex.draw_members = counting_draw
+    try:
+        row = converge("partial_index_girg100k", impl, graph, "span_sweep")
+    finally:
+        span_sparse.SpanIndex.draw_members = draw
+    exact = all(bool(torch.equal(c, t)) for c, t in tallies)
+    row.update(steps_checked=len(tallies), class_sizes_exact=exact,
+               members=int(impl._index.class_take.sum()), n=impl.num_vertices)
+    print("partial_index_samples " + json.dumps(dict(steps_checked=len(tallies), exact=exact,
+                                                      members_a_step=row["members"])))
+    check(exact and len(tallies) >= impl.iteration, "partial index: a step's sample sizes are not exact")
+    resume = flat_resume("girg100k_half_index", graph, "span_sweep", tmp, make=make)
+    return dict(row, resume=resume)
+
+
+def replicated_one_rank(graph, kernel: str, single: dict, name: str) -> dict:
+    """The API with ``distributedMode="replicated"`` on a one-rank NCCL
+    group, seed 1, to convergence: bitwise the single-device run
+    ``single`` (positions, losses, iterations, growth events, launches)."""
+    import numpy as np
+    import torch
+
+    from wembed_tpu_torch import api
+
+    api.setSeed(1)
+    embedder = api.createEmbedder(graph, api.Options(embeddingDimension=2, distributedMode="replicated"))
+    impl = embedder.impl
+    wall, launches = continue_run(impl)
+    loss = embedder.getLoss()
+    coords = impl.get_coordinates()
+    row = dict(
+        graph=name, ranks=impl.mesh.size, backend=impl.mesh.backend, iterations=impl.iteration,
+        launches=launches, growth_events=impl.growth_events, total_loss=loss.total, wall_s=wall,
+        single_wall_s=single["wall_s"],
+        bitwise_equal=bool(np.array_equal(coords, single["coords"]))
+        and (loss.attractive, loss.repulsive) == single["losses"],
+    )
+    print(f"replicated_{name} " + json.dumps(row))
+    check(type(impl).__name__ == "MultiChipEmbedder" and impl.mesh.size == 1, f"{name}: not one replicated rank")
+    check(row["bitwise_equal"], f"replicated {name}: the run differs from the single-device run")
+    check(impl.iteration == single["iterations"] and launches[kernel] == single["launches"],
+          f"replicated {name}: {impl.iteration} iterations, {launches[kernel]} launches")
+    check(impl.growth_events == single["growth_events"], f"replicated {name}: growth events differ")
+    torch.cuda.synchronize()
+    return row
+
+
+def replicated_layered(graph, single: dict) -> dict:
+    """The layered API run with ``distributedMode="replicated"`` on one
+    rank: the same layers, iterations and launches as the single-device
+    layered run, and its MAP."""
+    import dataclasses
+
+    from wembed_tpu_torch import api
+
+    api.setSeed(1)
+    embedder = api.createEmbedder(
+        graph, api.Options(embeddingDimension=2, layeredEmbedding=True, distributedMode="replicated")
+    )
+    wall, launches = continue_run(embedder.impl)
+    impl = embedder.impl
+    layers = [(r.n, r.path, r.iterations, r.launches, r.growth_events) for r in impl.layer_records]
+    for r in impl.layer_records:
+        print("layer_replicated " + json.dumps(dataclasses.asdict(r)))
+    row = dict(layers=len(layers), iterations=impl.iteration, launches=launches, wall_s=wall,
+               replicated_layer_n=[r.n for r in impl.layer_records if r.n >= 4096],
+               MAP=map_only(graph.csr, impl.get_coordinates(), impl.get_weights()),
+               single_MAP=single["MAP"])
+    print("replicated_layered " + json.dumps(row))
+    check(layers == single["layers"], "replicated layered: the layer records differ")
+    check(type(impl._current).__name__ == "MultiChipEmbedder", "replicated layered: the finest layer is not replicated")
+    check(row["MAP"] == single["MAP"], f"replicated layered: MAP {row['MAP']} != {single['MAP']}")
+    return dict(row, launches=launches)
+
+
+def replicated_cli(single_csv: str, tmp: Path) -> dict:
+    """``embed --distributed replicated`` under ``torch.distributed.run``
+    with one rank writes the single-device CLI's CSV."""
+    out = tmp / "girg10k_replicated.csv"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+         "-m", "wembed_tpu_torch.cli.embed", "-i", str(GIRG10K), "-o", str(out), "--seed", "1",
+         "--dim", "2", "--distributed", "replicated"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"replicated CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+    same = out.exists() and out.read_text() == single_csv
+    row = dict(ranks=1, wall_s=wall, rows=len(out.read_text().splitlines()) if out.exists() else 0, same_csv=same)
+    print("replicated_cli " + json.dumps(row))
+    check(same, "replicated CLI: the CSV differs from the single-device CLI's")
+    return row
+
+
+def first_step_single(graph) -> list:
+    """The reduced force pass of the first step of a single-device API run
+    (seed 1, d=2): the whole pass, as a one-rank share that records it."""
+    from wembed_tpu_torch import api
+    from wembed_tpu_torch.core.step import Share
+
+    recorded = []
+
+    def record(*parts):
+        recorded.append([None if t is None else t.detach().cpu() for t in parts])
+        return parts
+
+    api.setSeed(1)
+    impl = api.createEmbedder(graph, api.Options(embeddingDimension=2)).impl
+    impl._share = Share(0, 1, record)
+    impl.calculate_step()
+    return recorded[0]
+
+
+def two_rank_job(mesh, paths: list[str]) -> list[dict]:
+    """One rank of ``two_ranks_one_card``, for each graph: a run to
+    convergence (``distributed/launch.py:run_replicated``, seed 1, d=2),
+    then REDUCE_STEPS steps from seed 1 again with every reduction timed
+    on the host clock between two synchronisations (which slows that run,
+    hence a run of its own) and the first reduced force pass kept."""
+    import torch
+
+    from wembed_tpu_torch.core import EmbedderOptions
+    from wembed_tpu_torch.distributed import MultiChipEmbedder
+    from wembed_tpu_torch.distributed.launch import run_replicated
+    from wembed_tpu_torch.graphs import io
+    from wembed_tpu_torch.utils import set_seed
+
+    class TimedReduce(MultiChipEmbedder):
+        def __init__(self, *args, **kw):
+            self.reduce_s, self.first = 0.0, None
+            super().__init__(*args, **kw)
+
+        def _reduce(self, *parts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super()._reduce(*parts)
+            torch.cuda.synchronize()
+            self.reduce_s += time.perf_counter() - t0
+            if self.first is None:
+                self.first = [None if t is None else t.cpu().numpy() for t in out]
+            return out
+
+    opts = EmbedderOptions(embedding_dimension=2)
+    results = []
+    for path in paths:
+        (res,) = run_replicated(mesh, [dict(graph_path=path, options=opts, seed=1, steps=None)])
+        set_seed(1)
+        emb = TimedReduce(io.read_edge_list(path), opts, mesh=mesh, verbose=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REDUCE_STEPS):
+            emb.calculate_step()
+        torch.cuda.synchronize()
+        loop = time.perf_counter() - t0
+        results.append(dict(res, first=emb.first, reduce_share=emb.reduce_s / loop,
+                            timed_step_ms=loop * 1000.0 / REDUCE_STEPS))
+        del emb
+    return results
+
+
+def two_ranks_one_card(graphs: dict, references: dict) -> dict:
+    """girg10k and girg100k d=2 on two ranks sharing the card over gloo,
+    to convergence (``two_rank_job``): each rank's share and launches, the
+    step time of the plain run and the all-reduce's share of the timed
+    one, the first step's reduced force against the single-device step
+    from the same state, positions identical across the ranks, the loss
+    limit, overflow 0 and the MAP floors."""
+    import numpy as np
+    import torch
+
+    from wembed_tpu_torch.distributed import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(two_rank_job, 2, backend="gloo", device="cuda",
+                      args=([str(path) for path in graphs.values()],))
+    wall = time.perf_counter() - t0
+    out = {}
+    for j, (name, path) in enumerate(graphs.items()):
+        res = [r[j] for r in ranks]
+        graph = references[name]["graph"]
+        single = first_step_single(graph)
+        f_ok, f_err, f_scale = forces_agree(torch.as_tensor(res[0]["first"][0]), single[0])
+        counts_equal = (int(res[0]["first"][4]) == int(single[4])
+                        and bool(np.array_equal(res[0]["first"][1], single[1].numpy())))
+        ref_total = references[name]["ref_total"]
+        row = dict(
+            graph=name, ranks=2, backend="gloo", wall_s=wall,
+            shares=[r["shares"] for r in res], launches=[r["launches"] for r in res],
+            iterations=[r["iterations"] for r in res], loop_s=[r["seconds"] for r in res],
+            step_ms=res[0]["seconds"] * 1000.0 / res[0]["iterations"],
+            timed_step_ms=[r["timed_step_ms"] for r in res],
+            all_reduce_share=[r["reduce_share"] for r in res],
+            total_loss=res[0]["attract_loss"] + res[0]["repel_loss"], reference_total_loss=ref_total,
+            final_overflow=[r["overflow"] for r in res], growth_events=[r["growth_events"] for r in res],
+            first_step=dict(max_abs_err=f_err, max_abs_force=f_scale, counts_equal=counts_equal),
+            ranks_identical=bool(np.array_equal(res[0]["positions"], res[1]["positions"])),
+        )
+        row["MAP"] = map_only(graph.csr, res[0]["positions"], res[0]["weights"])
+        print("two_ranks_" + name + " " + json.dumps(row))
+        kernel = "fused_dense" if res[0]["path"] == "dense" else "span_sweep"
+        for r in res:
+            check(r["launches"][kernel] == r["iterations"] > 0, f"two ranks {name}: launches {r['launches']}")
+            check(r["overflow"] == 0, f"two ranks {name}: final overflow {r['overflow']}")
+            check(r["iterations"] < 1000, f"two ranks {name}: {r['iterations']} iterations")
+        check(f_ok and counts_equal, f"two ranks {name}: the first step's reduced force differs by {f_err}")
+        check(row["ranks_identical"], f"two ranks {name}: the ranks' positions differ")
+        check(row["total_loss"] <= LOSS_FACTOR * ref_total, f"two ranks {name}: total loss {row['total_loss']}")
+        check(row["MAP"] >= references[name]["map_floor"], f"two ranks {name}: MAP {row['MAP']}")
+        out[name] = row
+    return out
+
+
+
 def main() -> int:
     import torch
 
@@ -980,6 +1458,9 @@ def main() -> int:
         if gen_proc is not None and gen_proc.poll() is None:
             gen_proc.kill()
             gen_proc.wait()
+        mesh = sys.modules.get("wembed_tpu_torch.distributed.mesh")
+        if mesh is not None:
+            mesh.shutdown()  # the one-rank NCCL group of the replicated phases
 
 
 def run_phases(kind, gen_proc, gen_t0) -> int:
@@ -1012,6 +1493,33 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     for i, n in enumerate(GIRG100K_LAYERS):  # the layered path's dense sizes
         compare(f"n{n}_degree_d2", degree_case(n, seed=20 + i), timed=True)
 
+    # ---- phase 3b: the general dense kernel (f32 at d > 8, f64) and row ranges
+    f64 = torch.float64
+    general_dense = {}
+    general_rows = []
+    for d, dtype in ((16, None), (33, None), (2, f64), (16, f64)):
+        label = f"d{d}_{'f64' if dtype else 'f32'}"
+        general_rows.append(compare(
+            f"n3000_{label}", synthetic_case(3000, d, seed=40 + d, dtype=dtype, spread=0.3), False))
+        general_rows.append(compare(f"n1000_coincident_{label}", synthetic_case(
+            1000, d, coincident=True, seed=50 + d, dtype=dtype, spread=0.3), False))
+    case16 = crowd(girg10k_case(16))
+    print("crowd " + json.dumps(dict(case="girg10k_d16_step20", scale=case16["scale"])))
+    general_dense["f32_d16"] = compare("girg10k_d16_step20_crowded", case16, timed=True)
+    general_dense["f64_d16"] = compare(
+        "girg10k_d16_step20_crowded_f64",
+        dict(case16, pos=case16["pos"].double(), invw=case16["invw"].double()), timed=False,
+    )
+    del case16
+    case2 = girg10k_case(2, f64)
+    general_dense["f64_d2"] = compare("girg10k_d2_step20_f64", case2, timed=True)
+    compare_rows("girg10k_d2_f64_rows", case2, (3000, 7000))
+    del case2
+    compare_rows("girg10k_d2_rows", girg10k_case(), (3000, 7000))
+    for row in [*general_rows, *general_dense.values()]:
+        check(row["kernel"] == "general", f"{row['case']}: the general kernel did not run")
+        check(row["rep_count"][1] > 0, f"{row['case']}: no candidate pairs")
+
     # ---- phase 4: the dense main path
     references = json.loads(REFERENCE.read_text())["configs"]
     reference = references["girg10k_d2"]
@@ -1022,6 +1530,7 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused_dense.fused_dense_forces.launches = 0
+    fused_dense.fused_dense_forces.launches_general = 0
     t0 = time.perf_counter()
     embedder.calculateEmbedding()
     torch.cuda.synchronize()
@@ -1030,18 +1539,22 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     state = embedder.impl.state
     iterations = state.iteration
     loss = embedder.getLoss()
+    single_dense = dict(coords=embedder.impl.get_coordinates(), losses=(loss.attractive, loss.repulsive),
+                        iterations=iterations, launches=launches, growth_events=0, wall_s=wall)
+    main_general = fused_dense.fused_dense_forces.launches_general
     edges_per_s = graph.getNumEdges() * iterations / wall
     print(
         "main_path " + json.dumps(dict(
             graph="girg10k", n=graph.getNumVertices(), m=graph.getNumEdges(), dim=2, seed=1,
-            iterations=iterations, launches=launches, att_loss=loss.attractive,
-            rep_loss=loss.repulsive, total_loss=loss.total, reference_total_loss=ref_total,
-            wall_s=wall, edges_per_s=edges_per_s,
+            iterations=iterations, launches=launches, launches_general=main_general,
+            att_loss=loss.attractive, rep_loss=loss.repulsive, total_loss=loss.total,
+            reference_total_loss=ref_total, wall_s=wall, edges_per_s=edges_per_s,
             peak_mem_bytes=torch.cuda.max_memory_allocated(),
         ))
     )
     check(0 < iterations < 1000, f"did not converge before the cap ({iterations} iterations)")
     check(launches == iterations, f"{launches} kernel launches for {iterations} iterations")
+    check(main_general == 0, f"the main path launched the general dense kernel {main_general} times")
     check_finite(state, "on the dense path")
     check(loss.total <= LOSS_FACTOR * ref_total, f"total loss {loss.total} > {LOSS_FACTOR} x {ref_total}")
     dense_wall, dense_ref_total = wall, ref_total
@@ -1089,7 +1602,8 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
         )
         cli_wall = time.perf_counter() - t0
         check(proc.returncode == 0, f"CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
-        rows = out.read_text().splitlines() if out.exists() else []
+        single_csv = out.read_text() if out.exists() else ""
+        rows = single_csv.splitlines()
         print(f"cli: rc 0, {len(rows)} rows, {cli_wall:.3f} s including start-up")
         check(len(rows) == 10000, f"CLI wrote {len(rows)} rows")
 
@@ -1104,7 +1618,46 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     profiled_dense = profiled_run("girg10k", graph, "fused_dense", dense_wall, dense_ref_total)
     debug_checks_run(graph)
 
+    # ---- phase 7b: girg10k at d=16 and in f64 (the general kernels), f64
+    # on the card against the CPU, one replicated rank (NCCL) and its CLI
+    from wembed_tpu_torch.core import EmbedderOptions, RepulsionMode, WEmbedEmbedder
+
+    general_runs = {}
+    api.setSeed(1)
+    general_runs["girg10k_d16"] = converge(
+        "girg10k_d16", api.createEmbedder(graph, api.Options(embeddingDimension=16)).impl, graph,
+        "fused_dense", below_cap=False,
+    )
+    api.setSeed(1)
+    bucket16 = WEmbedEmbedder(
+        graph.csr, EmbedderOptions(embedding_dimension=16, repulsion_mode=RepulsionMode.BUCKET), verbose=False
+    )
+    general_runs["girg10k_d16_span"] = converge(
+        "girg10k_d16_span_20_steps", bucket16, graph, "span_sweep", cap=COMPARE_STEPS
+    )
+    from wembed_tpu_torch.core import forces
+
+    pos16 = bucket16.state.positions
+    scale = crowd_scale(pos16, bucket16._inv_w, bucket16._dg.colors, forces.build_dense_adjacency(bucket16._dg))
+    print("crowd " + json.dumps(dict(case="girg10k_d16_span_step20", scale=scale)))
+    general_span = {"f32_d16": compare_span("girg10k_d16_span_step20_crowded", sized_span_case(
+        (about_centre(pos16, scale), bucket16._inv_w, bucket16._weights, bucket16._dg.colors),
+        bucket16._index, bucket16.opts,
+    ), timed=True)}
+    del bucket16, pos16
+    api.setSeed(1)
+    general_runs["girg10k_f64"] = converge(
+        "girg10k_f64", WEmbedEmbedder(graph.csr, EmbedderOptions(embedding_dimension=2, dtype="float64"),
+                                      verbose=False),
+        graph, "fused_dense", ref_total=dense_ref_total, map_floor=MAP_FLAT_GIRG10K,
+    )
+    f64_card_against_cpu()
+    for name, run in general_runs.items():
+        kernel = "span_sweep" if "span" in name else "fused_dense"
+        check(run["launches_general"][kernel] == run["launches"][kernel], f"{name}: not the general kernel")
+
     # ---- phase 8: girg100k
+    graph10k = graph
     gen_seconds = finish_girg100k(gen_proc, gen_t0)
     md5 = hashlib.md5(GIRG100K.read_bytes()).hexdigest()
     reference = references["girg100k_d2"]
@@ -1147,6 +1700,13 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     starved = compare_span("n20000_starved_d2", synthetic_span_case(20000, 2, starved=True, seed=8), False)
     check(starved["overflow"] > 0, "the starved case did not truncate its windows")
 
+    # ---- phase 9b: the general sweep (f32 at d > 8, f64)
+    for d, dtype in ((16, None), (33, None), (2, f64), (16, f64)):
+        label = f"d{d}_{'f64' if dtype else 'f32'}"
+        row = compare_span(f"n8000_coincident_{label}", synthetic_span_case(
+            8000, d, coincident=True, seed=60 + d, dtype=dtype, spread=0.5), False)
+        check(row["kernel"] == "general", f"{row['case']}: the general sweep did not run")
+
     # ---- phase 10: the span main path
     ref_total = reference["att_loss"] + reference["rep_loss"]
     api.setSeed(1)
@@ -1155,6 +1715,7 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     span_sweep.span_sweep.launches = 0
+    span_sweep.span_sweep.launches_general = 0
     t0 = time.perf_counter()
     embedder.calculateEmbedding()
     torch.cuda.synchronize()
@@ -1164,10 +1725,14 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     iterations = state.iteration
     loss = embedder.getLoss()
     overflow = int(state.overflow)
+    single_span = dict(coords=impl.get_coordinates(), losses=(loss.attractive, loss.repulsive),
+                       iterations=iterations, launches=span_launches, growth_events=impl.growth_events,
+                       wall_s=wall)
+    span_general = span_sweep.span_sweep.launches_general
     print(
         "main_path_span " + json.dumps(dict(
             graph="girg100k", n=n, m=m, dim=2, seed=1, iterations=iterations,
-            launches=span_launches, growth_events=impl.growth_events,
+            launches=span_launches, launches_general=span_general, growth_events=impl.growth_events,
             shrink_events=impl._shrink_events, final_work_tiles=impl._index.w,
             final_overflow=overflow, att_loss=loss.attractive, rep_loss=loss.repulsive,
             total_loss=loss.total, reference_total_loss=ref_total, wall_s=wall,
@@ -1177,6 +1742,7 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     )
     check(0 < iterations < 1000, f"span path did not converge before the cap ({iterations} iterations)")
     check(span_launches == iterations, f"{span_launches} sweep launches for {iterations} iterations")
+    check(span_general == 0, f"the span main path launched the general sweep {span_general} times")
     check(overflow == 0, f"span path ended with overflow {overflow}")
     check_finite(state, "on the span path")
     check(loss.total <= LOSS_FACTOR * ref_total, f"span total loss {loss.total} > {LOSS_FACTOR} x {ref_total}")
@@ -1203,6 +1769,43 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     # ---- phase 13: negative sampling, girg100k
     sampled_run(graph)
 
+    # ---- phase 14: girg100k in f64, with a partial index, replicated on
+    # one rank (flat and layered), and on two ranks sharing the card
+    api.setSeed(1)
+    span64 = WEmbedEmbedder(graph.csr, EmbedderOptions(embedding_dimension=2, dtype="float64"), verbose=False)
+    for _ in range(COMPARE_STEPS):
+        span64.calculate_step()
+    st = span64.state
+    general_span["f64_d2"] = compare_span("girg100k_d2_step20_f64", span_case(
+        st.positions, span64._inv_w, span64._weights, span64._dg.colors, span64._index, span64.opts,
+    ), timed=True)
+    del st
+    general_runs["girg100k_f64"] = converge(
+        "girg100k_f64", span64, graph, "span_sweep", ref_total=ref_total, map_floor=map_floor
+    )
+    del span64
+    with tempfile.TemporaryDirectory() as tmp:
+        partial = partial_index_run(graph, Path(tmp))
+    # the replicated phases last: the one-rank NCCL group lives until exit
+    replicated_dense = replicated_one_rank(graph10k, "fused_dense", single_dense, "girg10k")
+    with tempfile.TemporaryDirectory() as tmp:
+        replicated_cli(single_csv, Path(tmp))
+    replicated_span = replicated_one_rank(graph, "span_sweep", single_span, "girg100k")
+    replicated_layers = replicated_layered(
+        graph, dict(layers=layered["layer_tuples"], MAP=layered["MAP"])
+    )
+    two_ranks = two_ranks_one_card(
+        dict(girg10k=GIRG10K, girg100k=GIRG100K),
+        dict(girg10k=dict(graph=graph10k, ref_total=dense_ref_total, map_floor=MAP_FLAT_GIRG10K),
+             girg100k=dict(graph=graph, ref_total=ref_total, map_floor=map_floor)),
+    )
+    general_total = {k: sum(r["launches_general"][k] for r in general_runs.values())
+                     for k in ("fused_dense", "span_sweep")}
+
+    def general_timing(row):
+        return {k: row[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+                if k in row}
+
     print(json.dumps({"kernels": [
         {
             "name": "fused_dense_forces",
@@ -1214,6 +1817,11 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
             "launches_profiled": profiled_dense["launches"],
             "launches_resumed": resume_dense["launches_after_checkpoint"][1],
             "launches_resumed_layered": resume_layered["launches"]["fused_dense"],
+            "launches_general": general_total["fused_dense"],
+            "launches_replicated": replicated_dense["launches"]["fused_dense"],
+            "launches_replicated_two_ranks": [r["fused_dense"] for r in two_ranks["girg10k"]["launches"]],
+            "launches_partial_index": partial["launches"]["fused_dense"],
+            "general": {k: general_timing(v) for k, v in general_dense.items()},
             "max_abs_err": girg["max_abs_err"],
             "ms": girg["ms"],
             "plain_ms": girg["plain_ms"],
@@ -1231,6 +1839,12 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
             "launches_profiled": profiled_span["launches"],
             "launches_resumed": resume_span["launches_after_checkpoint"][1],
             "launches_resumed_layered": resume_layered["launches"]["span_sweep"],
+            "launches_general": general_total["span_sweep"],
+            "launches_replicated": replicated_span["launches"]["span_sweep"],
+            "launches_replicated_layered": replicated_layers["launches"]["span_sweep"],
+            "launches_replicated_two_ranks": [r["span_sweep"] for r in two_ranks["girg100k"]["launches"]],
+            "launches_partial_index": partial["launches"]["span_sweep"],
+            "general": {k: general_timing(v) for k, v in general_span.items()},
             "max_abs_err": girg_span["max_abs_err"],
             "ms": girg_span["ms"],
             "plain_ms": girg_span["plain_ms"],

@@ -1,5 +1,6 @@
 """The port stands alone: it imports no jax, never falls back from CUDA to
-the CPU, and raises on the paths it does not run yet."""
+the CPU, and raises on the paths it does not run yet (the cell layout and
+the halo backend)."""
 
 import os
 import subprocess
@@ -28,7 +29,8 @@ def test_no_module_imports_jax():
         "for name in names: importlib.import_module(name)\n"
         "assert len(names) > 10, names\n"
         "for name in ('multilevel.layered', 'multilevel.label_prop', 'eval.device', 'cli.evaluate',\n"
-        "             'core.checkpoint', 'draw.svg', 'draw.ipe', 'draw.animate'):\n"
+        "             'core.checkpoint', 'draw.svg', 'draw.ipe', 'draw.animate',\n"
+        "             'distributed.mesh', 'distributed.step', 'distributed.launch'):\n"
         "    assert 'wembed_tpu_torch.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'wembed_tpu.')) or m == 'wembed_tpu')\n"
         "assert not bad, bad\n"
@@ -64,20 +66,28 @@ def test_default_device_raises_without_cuda():
     "opts",
     [
         EmbedderOptions(repulsion_mode=RepulsionMode.BUCKET, span_layout="cells"),
-        EmbedderOptions(dense_threshold=3, index_size=0.5),  # AUTO above the threshold
+        EmbedderOptions(dense_threshold=3, span_layout="cells"),  # AUTO above the threshold
     ],
 )
 def test_unported_options_raise(opts):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 15"):
         WEmbedEmbedder(_small_graph(), opts, verbose=False, device="cpu")
 
 
-@pytest.mark.parametrize(
-    "options", [api.Options(distributedMode="replicated"), api.Options(distributedMode="halo")]
-)
-def test_unported_api_modes_raise(options):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.createEmbedder(api.Graph(_small_graph()), options, device="cpu")
+@pytest.mark.parametrize("surface", ["api", "cli"])
+def test_unported_api_modes_raise(surface, capsys):
+    """The halo backend stops naming its ROADMAP item, through the API and
+    through the CLI."""
+    if surface == "api":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 16"):
+            api.createEmbedder(api.Graph(_small_graph()), api.Options(distributedMode="halo"), device="cpu")
+    else:
+        from wembed_tpu_torch.cli import embed
+
+        graph = os.path.join(REPO, "assets", "small_graph.edg")
+        with pytest.raises(SystemExit):
+            embed.main(["-i", graph, "--distributed", "halo"], device="cpu")
+        assert "ROADMAP.md, Queue 1, item 16" in capsys.readouterr().err
 
 
 def test_kernel_wrapper_uses_plain_version_only_for_cpu_tensors():

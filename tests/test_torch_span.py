@@ -254,7 +254,7 @@ def test_sweep_wrapper_runs_the_plain_version_on_the_cpu():
 @pytest.mark.parametrize(
     "change,error",
     [
-        (lambda a: (a[0].double(), *a[1:]), TypeError),  # f64 runs only on the CPU
+        (lambda a: (a[0].double(), *a[1:]), TypeError),  # f64 queries with f32 members
         (lambda a: (a[0][:, :-1].contiguous(), *a[1:]), ValueError),  # record width
         (lambda a: (a[0], torch.stack([a[1], a[1]], 1)[:, 0], *a[2:]), ValueError),  # strided
         (lambda a: (a[0][:-1], a[1][:-1], *a[2:]), ValueError),  # not whole blocks

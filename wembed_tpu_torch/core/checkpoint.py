@@ -31,8 +31,15 @@ What the port's file holds beyond the JAX package's keys:
 
 ``key`` holds the data of a JAX PRNG key derived from the generator's seed
 and ``span_scale`` is 1, so the JAX package's ``load_checkpoint`` reads the
-port's files too.  CSV import and export for reference interop live in
-``graphs.io`` (``write_coordinates`` / ``read_coordinates``).
+port's files too.
+
+A replicated multi-device run (``distributed/step.py``) holds the same
+state on every rank, so its file has the same format: rank 0 writes it
+and every rank waits on a barrier; every rank loads it.  A file from such
+a run loads into a single-device embedder, and the other way round.
+
+CSV import and export for reference interop live in ``graphs.io``
+(``write_coordinates`` / ``read_coordinates``).
 """
 
 from __future__ import annotations
@@ -82,19 +89,25 @@ def _flat_arrays(embedder) -> dict:
 
 
 def save_checkpoint(path: str, embedder) -> None:
-    """Snapshot a ``WEmbedEmbedder`` or ``LayeredEmbedder`` to ``path``
-    (.npz, appended when missing)."""
-    if hasattr(embedder, "hierarchy"):  # LayeredEmbedder
-        arrays = _flat_arrays(embedder._current)
-        arrays["layered"] = np.asarray(1)
-        arrays["current_layer"] = np.asarray(embedder.current_layer)
-        arrays["current_iteration"] = np.asarray(embedder.current_iteration)
-        arrays["num_layers"] = np.asarray(embedder.hierarchy.num_layers)
-        for i, layer in enumerate(embedder.hierarchy.layers[:-1]):
-            arrays[f"parent_{i}"] = layer.parent
+    """Snapshot a ``WEmbedEmbedder`` or ``LayeredEmbedder`` (either on
+    the replicated backend too) to ``path`` (.npz, appended when
+    missing)."""
+    layered = hasattr(embedder, "hierarchy")
+    mesh = getattr(embedder, "mesh", None)  # a replicated run's
+    if mesh is None or mesh.rank == 0:
+        if layered:
+            arrays = _flat_arrays(embedder._current)
+            arrays["layered"] = np.asarray(1)
+            arrays["current_layer"] = np.asarray(embedder.current_layer)
+            arrays["current_iteration"] = np.asarray(embedder.current_iteration)
+            arrays["num_layers"] = np.asarray(embedder.hierarchy.num_layers)
+            for i, layer in enumerate(embedder.hierarchy.layers[:-1]):
+                arrays[f"parent_{i}"] = layer.parent
+        else:
+            arrays = _flat_arrays(embedder)
         np.savez(path, **arrays)
-        return
-    np.savez(path, **_flat_arrays(embedder))
+    if mesh is not None:
+        mesh.barrier()
 
 
 def _restore_flat(arrays: dict, embedder) -> None:

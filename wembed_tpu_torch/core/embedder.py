@@ -73,6 +73,10 @@ def resolve_device(device: torch.device | str) -> torch.device:
 class WEmbedEmbedder(SpanGrowthMixin):
     """Flat (single-level) embedder on one device."""
 
+    # the force pass's share on one rank of a replicated multi-device run
+    # (``distributed/step.py``); None: the whole pass
+    _share: step_mod.Share | None = None
+
     def __init__(
         self,
         graph: CSRGraph,
@@ -157,11 +161,11 @@ class WEmbedEmbedder(SpanGrowthMixin):
         if self._span:
             return step_mod.span_step(
                 state, self._weights, self._inv_w, self._dg, self._index, self._blk_t,
-                self._items, self.opts,
+                self._items, self.opts, self._share,
             )
         if self._path == "sampled":
-            return step_mod.sampled_step(state, self._inv_w, self._dg, self.opts)
-        return step_mod.fused_step(state, self._inv_w, self._adj, self._dg, self.opts)
+            return step_mod.sampled_step(state, self._inv_w, self._dg, self.opts, self._share)
+        return step_mod.fused_step(state, self._inv_w, self._adj, self._dg, self.opts, self._share)
 
     def _profiled_step(self, state: EmbedState) -> EmbedState:
         return step_mod.profiled_step(

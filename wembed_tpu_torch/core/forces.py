@@ -60,12 +60,23 @@ def _edge_geometry(positions: torch.Tensor, src: torch.Tensor, dst: torch.Tensor
     return diff, dist2
 
 
+def edge_share(row_ptr: torch.Tensor, num_edges: int, share):
+    """(lo, hi, row_ptr) of the src-sorted directed edges: all of them, or
+    the share's contiguous range with the segment offsets clipped to it, so
+    that every vertex gets its partial (zero outside the range)."""
+    if share is None:
+        return 0, num_edges, row_ptr
+    lo, hi = share.cut(num_edges)
+    return lo, hi, torch.clamp(row_ptr, lo, hi) - lo
+
+
 def attraction_forces(
     positions: torch.Tensor,
     inv_w: torch.Tensor,
     dg: DeviceGraph,
     opts: EmbedderOptions,
     generator: torch.Generator,
+    share=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Edge SDDMM and per-vertex segment sum (``wembed_tpu/core/forces.py:
     attraction_forces``): each directed edge (src, dst) pulls src toward dst
@@ -73,24 +84,30 @@ def attraction_forces(
     source row only.  Coincident endpoints get a random unit kick instead
     (NewWEmbedEmbedder.cpp:197-200): one (E, d) draw from ``generator``
     every step, selected by mask, so that no host branch (and no
-    synchronisation) decides whether any edge needs one.
+    synchronisation) decides whether any edge needs one.  ``share``
+    (``core/step.py:Share``) takes its range of the edges, with the kicks
+    drawn whole and sliced, as the JAX package's sharded pass draws them
+    (``wembed_tpu/core/forces.py:139-152``).
 
     Returns (force (n, d), attraction loss)."""
     n, d = positions.shape
     dtype = positions.dtype
-    if dg.edge_src.shape[0] == 0:
+    e = dg.edge_src.shape[0]
+    if e == 0:
         return torch.zeros_like(positions), torch.zeros((), dtype=dtype, device=positions.device)
-    diff, dist2 = _edge_geometry(positions, dg.edge_src, dg.edge_dst)
+    lo, hi, row_ptr = edge_share(dg.row_ptr, e, share)
+    src, dst = dg.edge_src[lo:hi], dg.edge_dst[lo:hi]
+    diff, dist2 = _edge_geometry(positions, src, dst)
     dist = torch.sqrt(dist2)
     iw = inv_w.to(dtype)
-    ws = _weight_scaling(iw[dg.edge_src], iw[dg.edge_dst], opts.additive_weights)
+    ws = _weight_scaling(iw[src], iw[dst], opts.additive_weights)
     L = float(opts.edge_length)
     active = dist * ws > L
     coeff = torch.where(active, opts.attraction_scale * ws / torch.clamp_min(dist, 1e-30), 0.0)
-    kicks = random_unit_vectors(generator, diff.shape[0], d, dtype)
+    kicks = random_unit_vectors(generator, e, d, dtype)[lo:hi]
     force_e = torch.where((dist2 > 0)[:, None], coeff[:, None] * diff, kicks)
     loss = torch.sum(torch.where(active, dist - L / ws, 0.0))
-    return _segment_sum(force_e, dg.row_ptr), loss
+    return _segment_sum(force_e, row_ptr), loss
 
 
 def coincident_edge_counts(positions: torch.Tensor, dg: DeviceGraph) -> torch.Tensor:
@@ -122,6 +139,7 @@ def sampled_repulsion_forces(
     dg: DeviceGraph,
     opts: EmbedderOptions,
     generator: torch.Generator,
+    share=None,
 ):
     """Negative-sampling repulsion (numNegativeSamples > 0, reference
     NewWEmbedEmbedder.cpp:250-252,292-295): every vertex repels
@@ -130,14 +148,20 @@ def sampled_repulsion_forces(
     with replacement (the reference's Floyd sampling is without);
     indistinguishable for k << n, and the scaled force stays an unbiased
     estimate of the exact all-pairs repulsion.  The draw is one (n, k)
-    ``torch.randint`` from ``generator``.
+    ``torch.randint`` from ``generator``.  ``share`` (``core/step.py:
+    Share``) takes its range of the rows; the draw stays whole on every
+    rank and is sliced.  DOCUMENTED DEVIATION: the JAX package's sharded
+    pass folds the device index into the key (``wembed_tpu/core/forces.py:
+    294``); drawing whole keeps a replicated run on the single-device
+    trajectory.
 
     Returns (force (n, d), loss, count, zero_count (n,) int32); the caller
     applies the kicks."""
     n = positions.shape[0]
     k = min(int(opts.num_negative_samples), n)
     cand = torch.randint(0, n, (n, k), generator=generator, device=generator.device)
-    return _sampled_from_candidates(positions, inv_w, dg, opts, cand)
+    rows = None if share is None else share.cut(n)
+    return _sampled_from_candidates(positions, inv_w, dg, opts, cand, rows)
 
 
 def _sampled_from_candidates(
@@ -146,22 +170,27 @@ def _sampled_from_candidates(
     dg: DeviceGraph,
     opts: EmbedderOptions,
     cand: torch.Tensor,
+    rows: tuple[int, int] | None = None,
 ):
     """The sampled pass for given (n, k) candidates: each (v, cand[v, j])
     with different colours and not an edge counts; those inside the dead
     zone (dist * ws <= L, dist > 0) repel with force scale * ws / dist
     along pos_v - pos_u, scale = n / k.  The loss and the count are not
-    rescaled (``wembed_tpu/core/forces.py:sampled_repulsion_forces``)."""
+    rescaled (``wembed_tpu/core/forces.py:sampled_repulsion_forces``).
+    ``rows = (r0, r1)`` takes those rows only; the force and the zero
+    counts stay (n, ...), zero on the other rows."""
     n, d = positions.shape
     k = cand.shape[1]
     dtype = positions.dtype
     L = float(opts.edge_length)
-    rid = torch.arange(n, device=positions.device)[:, None]
-    diff = positions[:, None, :] - positions[cand]  # (n, k, d)
+    r0, r1 = (0, n) if rows is None else rows
+    cand = cand[r0:r1]
+    rid = torch.arange(r0, r1, device=positions.device)[:, None]
+    diff = positions[r0:r1, None, :] - positions[cand]  # (rows, k, d)
     dist = torch.sqrt(torch.sum(diff * diff, dim=-1))
     iw = inv_w.to(dtype)
-    ws = _weight_scaling(iw[:, None], iw[cand], opts.additive_weights)
-    valid = (dg.colors[:, None] != dg.colors[cand]) & ~_edge_membership(dg, rid, cand)
+    ws = _weight_scaling(iw[r0:r1, None], iw[cand], opts.additive_weights)
+    valid = (dg.colors[r0:r1, None] != dg.colors[cand]) & ~_edge_membership(dg, rid, cand)
     in_range = (dist * ws <= L) & valid
     active = in_range & (dist > 0)
     scale = float(n) / float(k)
@@ -172,7 +201,17 @@ def _sampled_from_candidates(
     loss = torch.sum(torch.where(active, L / ws - dist, 0.0))
     count = torch.sum(valid, dtype=torch.int64)
     zero_count = torch.sum((dist <= 0) & valid, dim=1, dtype=torch.int32)
+    if rows is not None:
+        force, zero_count = widen_rows(force, n, r0), widen_rows(zero_count, n, r0)
     return force, loss, count, zero_count
+
+
+def widen_rows(part: torch.Tensor, n: int, r0: int) -> torch.Tensor:
+    """A share's rows r0 ... r0 + len(part) - 1 as an n-row tensor, zero
+    on the other rows."""
+    full = torch.zeros((n, *part.shape[1:]), dtype=part.dtype, device=part.device)
+    full[r0 : r0 + part.shape[0]] = part
+    return full
 
 
 def build_dense_adjacency(dg: DeviceGraph) -> torch.Tensor:

@@ -13,9 +13,10 @@ kernel from the device of the tensors.
 reference's defaults.
 
 The port runs the dense path (n <= dense_threshold), the windowed span
-path above it, and negative sampling (``num_negative_samples >= 0``) at
-any size.  A partial index (``index_size < 1``) and the cell layout raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+path above it (with a partial index, ``index_size < 1``, as a per-step
+member sample), and negative sampling (``num_negative_samples >= 0``) at
+any size.  The cell layout raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ class EmbedderOptions:
     max_iterations: int = 1000
 
     # ---- execution (no reference counterpart)
-    dtype: str = "float32"  # positions/forces dtype; "float64" for CPU parity runs
+    dtype: str = "float32"  # positions/forces dtype, "float32" or "float64" (both on the card)
     repulsion_mode: RepulsionMode = RepulsionMode.AUTO
     dense_threshold: int = 16384  # AUTO switches to BUCKET above this
     window_capacity: int = 48  # base candidate window of the initial span sizing
@@ -107,11 +108,6 @@ class EmbedderOptions:
             return "sampled"
         mode = self.resolve_repulsion_mode(n)
         if mode is RepulsionMode.BUCKET:
-            if self.index_size < 1.0:
-                raise NotImplementedError(
-                    f"a partial span index (index_size={self.index_size} < 1) is not "
-                    "ported yet: ROADMAP.md, Queue 1, item 14"
-                )
             if self.span_layout == "cells":
                 raise NotImplementedError(
                     'the cell span layout (span_layout="cells") is not ported yet: '

@@ -15,11 +15,24 @@ phases.  PyTorch runs eagerly, so the loop is a Python loop.  It
 synchronises once per step, to read the convergence metric and the
 overflow together, which keeps the stopping iteration exactly the JAX
 package's.
+
+With a ``Share`` the force pass computes one rank's partial of the
+replicated multi-device step (``distributed/step.py``) and the share's
+``reduce`` sums every rank's partials; what follows the force pass runs
+whole, the same on every rank.  With the whole range a share's pass is the
+single-device pass.
+
+The generator's stream a step, in order: the partial index's member key
+(span path, ``index_size < 1``: (n,) f64), the edge kicks (span, sampled
+and profiled steps: (E, d)), the negative samples (sampled path: (n, k)),
+then the vertex kicks ((n, d), after the reduction).  Every draw is whole
+on every rank.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 from typing import Callable
 
 import torch
@@ -35,6 +48,26 @@ from ..kernels.span_sparse import (
 from .optim import AdamParams, adam_update, simple_update
 from .options import EmbedderOptions, OptimizerType
 from .state import DeviceGraph, EmbedState
+
+
+@dataclass(frozen=True)
+class Share:
+    """One rank's share of a step's force pass.  Each pass cuts its work
+    (dense rows, sweep work items, directed edges, sampled rows) into
+    ``size`` contiguous ranges of ceil(total / size), as the JAX package
+    cuts its shards (``wembed_tpu/core/forces.py:117-126``); ``reduce``
+    takes (force (n, d), zero_count (n,), att_loss, rep_loss, rep_count,
+    overflow or None), every rank's partials, and returns their totals in
+    the same form."""
+
+    rank: int
+    size: int
+    reduce: Callable
+
+    def cut(self, total: int) -> tuple[int, int]:
+        per = -(-total // self.size)
+        lo = min(self.rank * per, total)
+        return lo, min(lo + per, total)
 
 
 def _apply_optimizer(opts, old_positions, force, state: EmbedState, t: int):
@@ -108,10 +141,13 @@ def fused_step(
     adj: torch.Tensor,
     dg: DeviceGraph,
     opts: EmbedderOptions,
+    share: Share | None = None,
 ) -> EmbedState:
     """One iteration of the dense path: the whole force pass in the fused
-    kernel (``wembed_tpu/core/step.py:fused_step``)."""
-    d = state.positions.shape[1]
+    kernel (``wembed_tpu/core/step.py:fused_step``), or the share's rows
+    of it."""
+    n, d = state.positions.shape
+    rows = None if share is None else share.cut(n)
     force, zero_count, att_loss, rep_loss, rep_count = fused_dense_forces(
         state.positions,
         inv_w,
@@ -122,7 +158,14 @@ def fused_step(
         att_scale=opts.attraction_scale,
         rep_scale=opts.repulsion_scale,
         additive=opts.additive_weights,
+        rows=rows,
     )
+    if share is not None:
+        force = forces.widen_rows(force, n, rows[0])
+        zero_count = forces.widen_rows(zero_count, n, rows[0])
+        force, zero_count, att_loss, rep_loss, rep_count, _ = share.reduce(
+            force, zero_count, att_loss, rep_loss, rep_count, None
+        )
     return _finish_step(
         state, opts, force, zero_count, att_loss, rep_loss, rep_count, state.overflow
     )
@@ -137,21 +180,28 @@ def span_step(
     blk_t: torch.Tensor,
     items: torch.Tensor,
     opts: EmbedderOptions,
+    share: Share | None = None,
 ) -> EmbedState:
     """One iteration of the span path (the ``fused_span`` branch of
     ``wembed_tpu/core/step.py:step``): structures, sweep kernel and the
     merged attraction/correction edge pass, with the windows ``blk_t`` and
-    their work items ``items``."""
+    their work items ``items``; under a partial index, with this step's
+    member sample, drawn first."""
+    in_index = index.draw_members(state.generator)
     force, att_loss, rep_loss, rep_count, overflow, zero_count = span_fused_forces(
         state.positions, inv_w, weights, dg.colors, index, opts, state.generator,
-        blk_t=blk_t, items=items,
+        blk_t=blk_t, items=items, in_index=in_index, share=share,
     )
+    if share is not None:
+        force, zero_count, att_loss, rep_loss, rep_count, overflow = share.reduce(
+            force, zero_count, att_loss, rep_loss, rep_count, overflow
+        )
     return _finish_step(
         state, opts, force, zero_count, att_loss, rep_loss, rep_count, overflow
     )
 
 
-def _sampled_repulsion(state: EmbedState, inv_w, dg: DeviceGraph, opts: EmbedderOptions):
+def _sampled_repulsion(state: EmbedState, inv_w, dg: DeviceGraph, opts: EmbedderOptions, share=None):
     """(force, loss, count, zero_count) of the sampled pass; with
     ``num_negative_samples == 0`` no repulsion at all and no draw
     (``wembed_tpu/core/step.py:396-400``)."""
@@ -163,21 +213,34 @@ def _sampled_repulsion(state: EmbedState, inv_w, dg: DeviceGraph, opts: Embedder
             torch.zeros((), dtype=torch.int64, device=pos.device),
             torch.zeros((pos.shape[0],), dtype=torch.int32, device=pos.device),
         )
-    return forces.sampled_repulsion_forces(state.positions, inv_w, dg, opts, state.generator)
+    return forces.sampled_repulsion_forces(
+        state.positions, inv_w, dg, opts, state.generator, share
+    )
 
 
 def sampled_step(
-    state: EmbedState, inv_w: torch.Tensor, dg: DeviceGraph, opts: EmbedderOptions
+    state: EmbedState,
+    inv_w: torch.Tensor,
+    dg: DeviceGraph,
+    opts: EmbedderOptions,
+    share: Share | None = None,
 ) -> EmbedState:
     """One iteration with negative-sampling repulsion (the non-fused
     branch of ``wembed_tpu/core/step.py:step`` with
     ``num_negative_samples >= 0``): attraction, then the sampled pass, then
     the rest of the step.  The generator draws the edge kicks (E, d), the
     candidates (n, k) and the vertex kicks (n, d), in this order."""
-    force, att_loss = forces.attraction_forces(state.positions, inv_w, dg, opts, state.generator)
-    rep_force, rep_loss, rep_count, zero_count = _sampled_repulsion(state, inv_w, dg, opts)
+    force, att_loss = forces.attraction_forces(
+        state.positions, inv_w, dg, opts, state.generator, share
+    )
+    rep_force, rep_loss, rep_count, zero_count = _sampled_repulsion(state, inv_w, dg, opts, share)
+    force = force + rep_force
+    if share is not None:
+        force, zero_count, att_loss, rep_loss, rep_count, _ = share.reduce(
+            force, zero_count, att_loss, rep_loss, rep_count, None
+        )
     return _finish_step(
-        state, opts, force + rep_force, zero_count, att_loss, rep_loss, rep_count, state.overflow
+        state, opts, force, zero_count, att_loss, rep_loss, rep_count, state.overflow
     )
 
 
@@ -254,16 +317,20 @@ def profiled_step(
     JAX package's profiled dense step kicks coincident edges too."""
     clock = PhaseClock(state.positions.device)
     pos = state.positions
-    structures = None
+    structures = in_index = None
     if path == "span":
-        structures = build_span_structures(pos, inv_w, weights, dg.colors, index, opts, blk_t)
+        in_index = index.draw_members(state.generator)
+        structures = build_span_structures(
+            pos, inv_w, weights, dg.colors, index, opts, blk_t, in_index
+        )
         clock.mark("index")
     force_att, att_loss = forces.attraction_forces(pos, inv_w, dg, opts, state.generator)
     clock.mark("attracting_forces")
     overflow = state.overflow
     if path == "span":
         rep_force, rep_loss, rep_count, overflow, zero_count = span_repulsion_forces(
-            pos, inv_w, weights, dg.colors, index, opts, structures=structures, items=items
+            pos, inv_w, weights, dg.colors, index, opts, structures=structures, items=items,
+            in_index=in_index,
         )
     elif path == "dense":
         rep_force, zero_k, _, rep_loss, rep_count = fused_dense_forces(

@@ -55,6 +55,23 @@
 // losses and the candidate count go out as per-CTA partials, summed in a
 // fixed order by a third kernel, so results are deterministic.  The count
 // is integer (the TPU kernel counts in f32, exact only below 2^24).
+//
+// Row range.  A launch covers rows [row0, row0 + rows) against all n
+// columns (one rank's share of the replicated multi-device step); its
+// outputs hold those rows only.  The splits are the whole pass's, so each
+// row of a range is summed exactly as the whole pass sums it, bit for bit,
+// and a launch over [0, n) is the whole pass.
+//
+// The general kernel, fused_dense_general_kernel<T>, runs what the fast
+// one does not take: f32 at d > kMaxDim and f64 at any d.  The dimension
+// is a run-time value, so nothing is staged in tiles of compile-time
+// width: one warp owns one row, each lane strides over the columns
+// (positions read through L1/L2, the same bit adjacency), and a pair on
+// the rare path hands its coefficient to the warp, which adds coeff * diff
+// into the row's force in device memory, lane k % 32 owning dimension k,
+// pairs in column order.  The masks' operations are those above, in T: in
+// f64 the dead-zone test and the losses run in double.  Each row is summed
+// by its own warp, so there are no splits.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,18 +96,20 @@ struct Params {
   const uint32_t* adj;     // (n, W) adjacency bits
   int n;
   int W;                   // words a row, ceil(n / 32)
+  int row0;                // first row of the launch
+  int rows;                // rows of the launch
   int splits;              // S: column splits a row block
   float L;
   float L2;
   float att_scale;
   float rep_scale;
   int additive;
-  float* part_force;       // (S, n, D) per-split forces
-  int* part_zero;          // (S, n) per-split coincident counts
+  float* part_force;       // (S, rows, D) per-split forces
+  int* part_zero;          // (S, rows) per-split coincident counts
   double* part_loss;       // (gridDim.x, 2): attraction, repulsion
   long long* part_count;   // (gridDim.x,)
-  float* force;            // out (n, D)
-  int* zero_count;         // out (n,)
+  float* force;            // out (rows, D)
+  int* zero_count;         // out (rows,)
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -142,7 +161,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_dense_kernel(Params p) {
   const int lane = threadIdx.x % 32;
   const int rb = blockIdx.x / p.splits;
   const int split = blockIdx.x - rb * p.splits;
-  const int row0 = rb * kRows + warp * kRowsPerWarp;
+  const int lrow0 = rb * kRows + warp * kRowsPerWarp;  // within the launch's rows
+  const int row0 = p.row0 + lrow0;
   const int tiles = (p.n + kTileC - 1) / kTileC;
   const int t_lo = (int)((long long)split * tiles / p.splits);
   const int t_hi = (int)((long long)(split + 1) * tiles / p.splits);
@@ -153,12 +173,12 @@ __global__ void __launch_bounds__(kThreads, 2) fused_dense_kernel(Params p) {
   int cr[kRowsPerWarp];
   int zc[kRowsPerWarp];
   uint32_t word[kRowsPerWarp];
-  // rows past n get NaN positions and no adjacency bits: every pair of
-  // theirs fails both the distance test and the neighbour test
+  // rows past the launch's get NaN positions and no adjacency bits: every
+  // pair of theirs fails both the distance test and the neighbour test
   bool rv[kRowsPerWarp];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
-    rv[r] = row0 + r < p.n;
+    rv[r] = lrow0 + r < p.rows;
     const int rr = rv[r] ? row0 + r : 0;
 #pragma unroll
     for (int k = 0; k < D; ++k) {
@@ -262,8 +282,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_dense_kernel(Params p) {
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       if (!rv[r]) continue;
-      const int row = row0 + r;
-      const size_t o = (size_t)split * p.n + row;
+      const size_t o = (size_t)split * p.rows + lrow0 + r;
 #pragma unroll
       for (int k = 0; k < D; ++k) p.part_force[o * D + k] = facc[r][k];
       p.part_zero[o] = zc[r];
@@ -301,13 +320,13 @@ __global__ void __launch_bounds__(kThreads, 2) fused_dense_kernel(Params p) {
 template <int D>
 __global__ void __launch_bounds__(kFinalizeThreads) rows_kernel(Params p) {
   const int row = blockIdx.x * kFinalizeThreads + threadIdx.x;
-  if (row >= p.n) return;
+  if (row >= p.rows) return;
   float f[D];
 #pragma unroll
   for (int k = 0; k < D; ++k) f[k] = 0.0f;
   int z = 0;
   for (int s = 0; s < p.splits; ++s) {
-    const size_t o = (size_t)s * p.n + row;
+    const size_t o = (size_t)s * p.rows + row;
 #pragma unroll
     for (int k = 0; k < D; ++k) f[k] = f[k] + p.part_force[o * D + k];
     z += p.part_zero[o];
@@ -317,10 +336,11 @@ __global__ void __launch_bounds__(kFinalizeThreads) rows_kernel(Params p) {
   p.zero_count[row] = z;
 }
 
-// Sums the per-CTA partials in a fixed order; the losses leave as f32.
+// Sums the per-CTA partials in a fixed order; the losses leave as T.
+template <typename T>
 __global__ void __launch_bounds__(kFinalizeThreads)
 finalize_kernel(const double* part_loss, const long long* part_count, int num_parts,
-                float* loss_out, long long* count_out) {
+                T* loss_out, long long* count_out) {
   __shared__ double s_a[kFinalizeThreads];
   __shared__ double s_b[kFinalizeThreads];
   __shared__ long long s_c[kFinalizeThreads];
@@ -344,8 +364,8 @@ finalize_kernel(const double* part_loss, const long long* part_count, int num_pa
     __syncthreads();
   }
   if (threadIdx.x == 0) {
-    loss_out[0] = (float)s_a[0];
-    loss_out[1] = (float)s_b[0];
+    loss_out[0] = (T)s_a[0];
+    loss_out[1] = (T)s_b[0];
     count_out[0] = s_c[0];
   }
 }
@@ -380,25 +400,195 @@ cudaError_t choose_splits(int n, int device, int* splits) {
 
 template <int D>
 cudaError_t launch(const Params& p, cudaStream_t stream, float* loss_out, long long* count_out) {
-  const int blocks = ((p.n + kRows - 1) / kRows) * p.splits;
+  const int blocks = ((p.rows + kRows - 1) / kRows) * p.splits;
   fused_dense_kernel<D><<<blocks, kThreads, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  rows_kernel<D><<<(p.n + kFinalizeThreads - 1) / kFinalizeThreads, kFinalizeThreads, 0, stream>>>(p);
+  rows_kernel<D><<<(p.rows + kFinalizeThreads - 1) / kFinalizeThreads, kFinalizeThreads, 0, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  finalize_kernel<<<1, kFinalizeThreads, 0, stream>>>(p.part_loss, p.part_count, blocks,
-                                                      loss_out, count_out);
+  finalize_kernel<float><<<1, kFinalizeThreads, 0, stream>>>(p.part_loss, p.part_count, blocks,
+                                                             loss_out, count_out);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- general
+
+template <typename T>
+struct GeneralParams {
+  const T* pos;            // (n, d) row-major
+  const T* invw;           // (n,)
+  const int* colors;       // (n,)
+  const uint32_t* adj;     // (n, W) adjacency bits
+  int n;
+  int W;
+  int d;
+  int row0;
+  int rows;
+  T L;
+  T L2;
+  T att_scale;
+  T rep_scale;
+  int additive;
+  T* force;                // out (rows, d), accumulated in place
+  int* zero_count;         // out (rows,)
+  double* part_loss;       // (gridDim.x, 2)
+  long long* part_count;   // (gridDim.x,)
+};
+
+__device__ __forceinline__ float ieee_sqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double ieee_sqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float max_of(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double max_of(double a, double b) { return fmax(a, b); }
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) fused_dense_general_kernel(GeneralParams<T> p) {
+  __shared__ double s_att[kWarps];
+  __shared__ double s_rep[kWarps];
+  __shared__ long long s_cnt[kWarps];
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int lrow = blockIdx.x * kWarps + warp;
+  double att_loss = 0.0;
+  double rep_loss = 0.0;
+  long long count = 0;
+  int zc = 0;
+  if (lrow < p.rows) {  // uniform across the warp
+    const int row = p.row0 + lrow;
+    const T* pr = p.pos + (size_t)row * p.d;
+    T* fr = p.force + (size_t)lrow * p.d;
+    for (int k = lane; k < p.d; k += 32) fr[k] = T(0);
+    const T iwr = p.invw[row];
+    const int cr = p.colors[row];
+    const uint32_t* arow = p.adj + (size_t)row * p.W;
+    for (int c0 = 0; c0 < p.n; c0 += 32) {
+      const int c = c0 + lane;
+      const uint32_t word = arow[c0 / 32];
+      T coeff = T(0);
+      bool act = false;
+      if (c < p.n) {
+        const T* pc = p.pos + (size_t)c * p.d;
+        T dist2 = T(0);
+        for (int k = 0; k < p.d; ++k) {
+          const T diff = pr[k] - pc[k];
+          dist2 = dist2 + diff * diff;
+        }
+        const bool nbr = (word >> lane) & 1u;
+        const T iwc = p.invw[c];
+        const T ws = p.additive ? iwr + iwc : iwr * iwc;
+        const T wdist2 = dist2 * (ws * ws);
+        const bool close = wdist2 <= p.L2;
+        if (close || nbr) {
+          const bool rep = !nbr && (cr != p.colors[c]) && close;
+          const bool att = nbr && (wdist2 > p.L2);
+          const bool posd = dist2 > T(0);
+          count += rep ? 1 : 0;
+          zc += (!posd && (nbr || rep)) ? 1 : 0;
+          if ((rep && posd) || att) {
+            const T dist = ieee_sqrt(dist2);
+            const T inv = T(1) / max_of(dist, T(1e-30));
+            const T linvws = p.L / ws;
+            if (rep) {
+              coeff = p.rep_scale * ws * inv;
+              rep_loss += linvws - dist;
+            } else {
+              coeff = -(p.att_scale * ws * inv);
+              att_loss += dist - linvws;
+            }
+            act = true;
+          }
+        }
+      }
+      // the warp adds each active pair's coeff * diff, in column order
+      unsigned pending = __ballot_sync(0xffffffffu, act);
+      while (pending) {
+        const int j = __ffs(pending) - 1;
+        pending &= pending - 1;
+        const T cj = __shfl_sync(0xffffffffu, coeff, j);
+        const T* pc = p.pos + (size_t)(c0 + j) * p.d;
+        for (int k = lane; k < p.d; k += 32) fr[k] = fr[k] + cj * (pr[k] - pc[k]);
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) zc += __shfl_xor_sync(0xffffffffu, zc, off);
+    if (lane == 0) p.zero_count[lrow] = zc;
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    att_loss += __shfl_xor_sync(0xffffffffu, att_loss, off);
+    rep_loss += __shfl_xor_sync(0xffffffffu, rep_loss, off);
+    count += __shfl_xor_sync(0xffffffffu, count, off);
+  }
+  if (lane == 0) {
+    s_att[warp] = att_loss;
+    s_rep[warp] = rep_loss;
+    s_cnt[warp] = count;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double a = 0.0, b = 0.0;
+    long long c = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      a += s_att[w];
+      b += s_rep[w];
+      c += s_cnt[w];
+    }
+    p.part_loss[2 * blockIdx.x] = a;
+    p.part_loss[2 * blockIdx.x + 1] = b;
+    p.part_count[blockIdx.x] = c;
+  }
+}
+
+template <typename T>
+cudaError_t launch_general(const GeneralParams<T>& p, cudaStream_t stream, T* loss_out,
+                           long long* count_out) {
+  const int blocks = (p.rows + kWarps - 1) / kWarps;
+  fused_dense_general_kernel<T><<<blocks, kThreads, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  finalize_kernel<T><<<1, kFinalizeThreads, 0, stream>>>(p.part_loss, p.part_count, blocks,
+                                                         loss_out, count_out);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t general(const void* pos, const void* invw, const int* colors, const int* adj, int n,
+                    int dim, int row0, int rows, double L, double att_scale, double rep_scale,
+                    int additive, void* force, int* zero_count, double* part_loss,
+                    long long* part_count, void* loss_out, long long* count_out,
+                    cudaStream_t stream) {
+  GeneralParams<T> p;
+  p.pos = static_cast<const T*>(pos);
+  p.invw = static_cast<const T*>(invw);
+  p.colors = colors;
+  p.adj = reinterpret_cast<const uint32_t*>(adj);
+  p.n = n;
+  p.W = (n + 31) / 32;
+  p.d = dim;
+  p.row0 = row0;
+  p.rows = rows;
+  p.L = static_cast<T>(L);
+  p.L2 = static_cast<T>(L * L);
+  p.att_scale = static_cast<T>(att_scale);
+  p.rep_scale = static_cast<T>(rep_scale);
+  p.additive = additive;
+  p.force = static_cast<T*>(force);
+  p.zero_count = zero_count;
+  p.part_loss = part_loss;
+  p.part_count = part_count;
+  return launch_general<T>(p, stream, static_cast<T*>(loss_out), count_out);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows per CTA: the wrapper sizes the (ceil(n / rows) * S, 2) and
-// (ceil(n / rows) * S,) partial buffers from it.
+// Rows per CTA of the fast kernel: the wrapper sizes the
+// (ceil(rows / kRows) * S, 2) and (ceil(rows / kRows) * S,) partial
+// buffers from it.
 int wembed_fused_dense_rows_per_block() { return kRows; }
+
+// Rows per CTA of the general kernel (one warp a row).
+int wembed_fused_dense_general_rows_per_block() { return kWarps; }
 
 int wembed_fused_dense_max_dim() { return kMaxDim; }
 
@@ -406,8 +596,10 @@ const char* wembed_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Writes the column splits S for n vertices at dimension dim on `device`
-// to *splits and returns a cudaError_t.
+// Writes the column splits S of the fast kernel for n vertices at dimension
+// dim on `device` to *splits and returns a cudaError_t.  S is chosen for
+// the whole pass and used for a row range too, so that a range sums each
+// of its rows exactly as the whole pass does.
 int wembed_fused_dense_splits(int n, int dim, int device, int* splits) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -425,14 +617,16 @@ int wembed_fused_dense_splits(int n, int dim, int device, int* splits) {
   return static_cast<int>(err);
 }
 
-// Enqueues the force pass on `stream` and returns the first launch error.
+// Enqueues the force pass of rows [row0, row0 + rows) on `stream` (the
+// fast kernel: f32, dim <= kMaxDim) and returns the first launch error.
 // Allocates nothing and does not synchronise; every buffer comes from the
-// caller.  adj holds n * ceil(n / 32) words; part_force S * n * dim floats,
-// part_zero S * n ints, part_loss 2 * ceil(n / rows) * S doubles,
-// part_count ceil(n / rows) * S int64s, loss_out 2 floats, count_out one
-// int64.
+// caller.  adj holds n * ceil(n / 32) words; part_force S * rows * dim
+// floats, part_zero S * rows ints, part_loss 2 * ceil(rows / kRows) * S
+// doubles, part_count ceil(rows / kRows) * S int64s, force rows * dim
+// floats, zero_count rows ints, loss_out 2 floats, count_out one int64.
 int wembed_fused_dense_forces(const float* pos, const float* invw, const int* colors,
-                              const int* adj, int n, int dim, int splits, double L,
+                              const int* adj, int n, int dim, int row0, int rows, int splits,
+                              double L,
                               double att_scale, double rep_scale, int additive,
                               float* part_force, int* part_zero, double* part_loss,
                               long long* part_count, float* force, int* zero_count,
@@ -440,7 +634,8 @@ int wembed_fused_dense_forces(const float* pos, const float* invw, const int* co
                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n < 1 || dim < 1 || dim > kMaxDim || splits < 1 || splits > kMaxSplits) {
+  if (n < 1 || dim < 1 || dim > kMaxDim || splits < 1 || splits > kMaxSplits || row0 < 0 ||
+      rows < 1 || row0 + rows > n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -450,6 +645,8 @@ int wembed_fused_dense_forces(const float* pos, const float* invw, const int* co
   p.adj = reinterpret_cast<const uint32_t*>(adj);
   p.n = n;
   p.W = (n + 31) / 32;
+  p.row0 = row0;
+  p.rows = rows;
   p.splits = splits;
   p.L = static_cast<float>(L);
   p.L2 = static_cast<float>(L * L);  // as the TPU kernel: L*L in double, compared in f32
@@ -472,6 +669,36 @@ int wembed_fused_dense_forces(const float* pos, const float* invw, const int* co
     case 6: err = launch<6>(p, s, loss_out, count_out); break;
     case 7: err = launch<7>(p, s, loss_out, count_out); break;
     case 8: err = launch<8>(p, s, loss_out, count_out); break;
+  }
+  return static_cast<int>(err);
+}
+
+// Enqueues the general kernel's force pass of rows [row0, row0 + rows)
+// on `stream`: positions, inverse weights, force and loss_out in f64 when
+// `f64` is set, else f32, any dim >= 1.  part_loss holds
+// 2 * ceil(rows / 8) doubles, part_count ceil(rows / 8) int64s, force
+// rows * dim values, zero_count rows ints, loss_out 2 values, count_out
+// one int64.
+int wembed_fused_dense_general(const void* pos, const void* invw, const int* colors,
+                               const int* adj, int n, int dim, int row0, int rows, int f64,
+                               double L, double att_scale, double rep_scale, int additive,
+                               void* force, int* zero_count, double* part_loss,
+                               long long* part_count, void* loss_out, long long* count_out,
+                               int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n < 1 || dim < 1 || row0 < 0 || rows < 1 || row0 + rows > n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f64) {
+    err = general<double>(pos, invw, colors, adj, n, dim, row0, rows, L, att_scale, rep_scale,
+                          additive, force, zero_count, part_loss, part_count, loss_out,
+                          count_out, s);
+  } else {
+    err = general<float>(pos, invw, colors, adj, n, dim, row0, rows, L, att_scale, rep_scale,
+                         additive, force, zero_count, part_loss, part_count, loss_out,
+                         count_out, s);
   }
   return static_cast<int>(err);
 }

@@ -56,6 +56,20 @@
 // at iteration 20: 11,853 tiles = 776.8M pairs x 7 FLOP plus ~9.6M valid
 // pairs x 14, 5.6 GFLOP, 0.083 ms at 67 TFLOP/s.  The bytes (query and
 // member records, the tables) are a few MB: ~2 us at 3.35 TB/s.
+//
+// The general kernel, span_sweep_general_kernel<T>, runs what the fast one
+// does not take: f32 at d > kMaxDim and f64 at any d, over the same work
+// items and the same per-item scratch layout.  The record width is a
+// run-time value, so nothing is staged: one thread a query slot reads its
+// query record and each member record (the same address across the CTA)
+// straight from device memory through L1, and adds each active pair's
+// coeff * diff into its slot's scratch column in member order.  Counts go
+// through the scratch as T (at most 4 x 256 pairs an item, exact in f32).
+// span_reduce_general_kernel<T> adds each block's items in item order.
+//
+// One rank's share of the replicated multi-device step is a contiguous
+// slice items[lo:hi] of the table: a block with no items in the slice gets
+// zeros from the reduction, so the slice sweeps exactly that share.
 
 #include <cuda_runtime.h>
 
@@ -135,14 +149,16 @@ __device__ __forceinline__ void stage_tile(const Params& p, float* buf, int tile
 struct Walk {
   int blk, g, t, width, base;
 
-  __device__ void load_row(const Params& p) {
+  template <class P>
+  __device__ void load_row(const P& p) {
     width = p.blk_t[blk * p.R + g];
     base = p.tile_off[g] + p.start_tile[blk * p.R + g];
   }
 
   __device__ int tile() const { return base + t; }
 
-  __device__ void next(const Params& p) {
+  template <class P>
+  __device__ void next(const P& p) {
     if (++t < width) return;
     t = 0;
     do {
@@ -313,6 +329,156 @@ cudaError_t launch(const Params& p, int nb, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- general
+
+template <typename T>
+struct GeneralParams {
+  const T* qrec;           // (nb * kQ, d + 3)
+  const int* qcol;
+  const T* srec;           // (tiles * kST, d + 3)
+  const int* scol;
+  const int* blk_t;
+  const int* start_tile;
+  const int* tile_off;
+  const int4* items;
+  int n_items;
+  int R;
+  int d;
+  T L;
+  T L2;
+  T rep_scale;
+  int additive;
+  T* scratch;              // (n_items, d + 3, kQ): force(d), loss, count, zero
+  T* force;                // out (nb * kQ, d)
+  T* loss;                 // out (nb * kQ,)
+  int* count;              // out (nb * kQ,)
+  int* zero;               // out (nb * kQ,)
+};
+
+__device__ __forceinline__ float ieee_sqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double ieee_sqrt(double x) { return sqrt(x); }
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) span_sweep_general_kernel(GeneralParams<T> p) {
+  const int4 item = p.items[blockIdx.x];
+  const int d = p.d;
+  const int C = d + 3;
+  const size_t qslot = (size_t)item.x * kQ + threadIdx.x;
+  const T* q = p.qrec + qslot * C;
+  const int qc = p.qcol[qslot];
+  const T q_iw = q[d];
+  const T q_lw2 = q[d + 1];
+  const T q_raw = q[d + 2];
+  T* out = p.scratch + (size_t)blockIdx.x * C * kQ + threadIdx.x;  // channel c at out[c * kQ]
+  for (int k = 0; k < d; ++k) out[k * kQ] = T(0);
+  T lsum = T(0);
+  int cnt = 0, zc = 0;
+
+  Walk walk{item.x, item.y, item.z, 0, 0};
+  walk.load_row(p);
+  for (int i = 0; i < item.w; ++i) {
+    if (i > 0) walk.next(p);
+    const size_t first = (size_t)walk.tile() * kST;
+    for (int m = 0; m < kST; ++m) {
+      const T* s = p.srec + (first + m) * C;
+      T dist2 = T(0);
+      for (int k = 0; k < d; ++k) {
+        const T diff = q[k] - s[k];
+        dist2 = dist2 + diff * diff;
+      }
+      if (!((dist2 <= q_lw2 * s[d + 1]) && (qc != p.scol[first + m]))) continue;
+      // the rare path: a candidate
+      ++cnt;
+      if (!(dist2 > T(0))) {
+        ++zc;
+        continue;
+      }
+      const T ws = p.additive ? q_iw + s[d] : q_iw * s[d];
+      if (!(dist2 * (ws * ws) <= p.L2)) continue;
+      const T dist = ieee_sqrt(dist2);
+      const T inv = T(1) / dist;
+      const T coeff = p.rep_scale * ws * inv;
+      for (int k = 0; k < d; ++k) out[k * kQ] = out[k * kQ] + coeff * (q[k] - s[k]);
+      const T l_over_ws = p.additive ? p.L / ws : (p.L * q_raw) * s[d + 2];
+      lsum = lsum + (l_over_ws - dist);
+    }
+  }
+  out[d * kQ] = lsum;
+  out[(d + 1) * kQ] = static_cast<T>(cnt);
+  out[(d + 2) * kQ] = static_cast<T>(zc);
+}
+
+// Adds each query block's items in item order; a block without items gets
+// zeros.  One CTA a block, one thread a slot.
+template <typename T>
+__global__ void __launch_bounds__(kQ) span_reduce_general_kernel(GeneralParams<T> p) {
+  const int blk = blockIdx.x;
+  const int slot = threadIdx.x;
+  const int d = p.d;
+  const int C = d + 3;
+  int lo = 0, hi = p.n_items;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (p.items[mid].x < blk) lo = mid + 1; else hi = mid;
+  }
+  int end = lo;
+  while (end < p.n_items && p.items[end].x == blk) ++end;
+  const size_t s = (size_t)blk * kQ + slot;
+  for (int c = 0; c <= d; ++c) {
+    T acc = T(0);
+    for (int it = lo; it < end; ++it) acc = acc + p.scratch[((size_t)it * C + c) * kQ + slot];
+    if (c < d) p.force[s * d + c] = acc; else p.loss[s] = acc;
+  }
+  int cnt = 0, zc = 0;
+  for (int it = lo; it < end; ++it) {
+    cnt += static_cast<int>(p.scratch[((size_t)it * C + d + 1) * kQ + slot]);
+    zc += static_cast<int>(p.scratch[((size_t)it * C + d + 2) * kQ + slot]);
+  }
+  p.count[s] = cnt;
+  p.zero[s] = zc;
+}
+
+template <typename T>
+cudaError_t launch_general(const GeneralParams<T>& p, int nb, cudaStream_t stream) {
+  if (p.n_items > 0) {
+    span_sweep_general_kernel<T><<<p.n_items, kThreads, 0, stream>>>(p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  span_reduce_general_kernel<T><<<nb, kQ, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t general(const void* qrec, const int* qcol, const void* srec, const int* scol,
+                    const int* blk_t, const int* start_tile, const int* tile_off,
+                    const int* items, int n_items, int nb, int R, int dim, double L,
+                    double rep_scale, int additive, void* scratch, void* force, void* loss,
+                    int* count, int* zero, cudaStream_t stream) {
+  GeneralParams<T> p;
+  p.qrec = static_cast<const T*>(qrec);
+  p.qcol = qcol;
+  p.srec = static_cast<const T*>(srec);
+  p.scol = scol;
+  p.blk_t = blk_t;
+  p.start_tile = start_tile;
+  p.tile_off = tile_off;
+  p.items = reinterpret_cast<const int4*>(items);
+  p.n_items = n_items;
+  p.R = R;
+  p.d = dim;
+  p.L = static_cast<T>(L);
+  p.L2 = static_cast<T>(L * L);
+  p.rep_scale = static_cast<T>(rep_scale);
+  p.additive = additive;
+  p.scratch = static_cast<T*>(scratch);
+  p.force = static_cast<T*>(force);
+  p.loss = static_cast<T*>(loss);
+  p.count = count;
+  p.zero = zero;
+  return launch_general<T>(p, nb, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -373,6 +539,29 @@ int wembed_span_sweep(const float* qrec, const int* qcol, const float* srec,
     case 6: err = launch<6>(p, nb, s); break;
     case 7: err = launch<7>(p, nb, s); break;
     case 8: err = launch<8>(p, nb, s); break;
+  }
+  return static_cast<int>(err);
+}
+
+// Enqueues the general sweep (records, scratch and outputs in f64 when
+// `f64` is set, else f32; any dim >= 1) on `stream`, with the buffers of
+// wembed_span_sweep: `scratch` holds n_items * (dim + 3) * 256 values.
+int wembed_span_sweep_general(const void* qrec, const int* qcol, const void* srec,
+                              const int* scol, const int* blk_t, const int* start_tile,
+                              const int* tile_off, const int* items, int n_items, int nb, int R,
+                              int dim, int f64, double L, double rep_scale, int additive,
+                              void* scratch, void* force, void* loss, int* count, int* zero,
+                              int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (nb < 1 || R < 1 || n_items < 0 || dim < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f64) {
+    err = general<double>(qrec, qcol, srec, scol, blk_t, start_tile, tile_off, items, n_items,
+                          nb, R, dim, L, rep_scale, additive, scratch, force, loss, count, zero, s);
+  } else {
+    err = general<float>(qrec, qcol, srec, scol, blk_t, start_tile, tile_off, items, n_items,
+                         nb, R, dim, L, rep_scale, additive, scratch, force, loss, count, zero, s);
   }
   return static_cast<int>(err);
 }

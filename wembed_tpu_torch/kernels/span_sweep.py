@@ -29,9 +29,13 @@ tiles to skip in row g's window, tiles)``.  The table depends only on
 ``blk_t``, so it is built on the host once per window change.  The kernel
 runs one CTA an item and adds each block's items in item order.
 
-``span_sweep`` launches ``csrc/span_sweep.cu`` for CUDA tensors (f32 only)
-and runs ``span_sweep_reference``, the plain PyTorch version, for CPU
-tensors (f32 or f64).
+``span_sweep`` launches ``csrc/span_sweep.cu`` for CUDA tensors, the fast
+kernel for f32 at d <= 8 and the general one for f64 or a larger d
+(``launches_general`` counts those), and runs ``span_sweep_reference``,
+the plain PyTorch version, for CPU tensors (f32 or f64).  A contiguous
+slice of the work items sweeps exactly those items' tiles: blocks without
+an item in the slice get zeros.  That slice is one rank's share of the
+replicated multi-device step.
 """
 
 from __future__ import annotations
@@ -184,6 +188,10 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.wembed_span_sweep_error_string.restype = ctypes.c_char_p
     lib.wembed_span_sweep.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, d, d, i, p, p, p, p, p, i, p]
     lib.wembed_span_sweep.restype = i
+    lib.wembed_span_sweep_general.argtypes = [
+        p, p, p, p, p, p, p, p, i, i, i, i, i, d, d, i, p, p, p, p, p, i, p,
+    ]
+    lib.wembed_span_sweep_general.restype = i
 
 
 def _check(qrec, qcol, srec, scol, blk_t, start_tile, tile_off, items, dim):
@@ -191,10 +199,12 @@ def _check(qrec, qcol, srec, scol, blk_t, start_tile, tile_off, items, dim):
     nb, rr = blk_t.shape
     if items is None:
         raise ValueError("the CUDA kernel needs the work-item table (items=)")
+    if qrec.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the CUDA kernels take records as float32 or float64, got {qrec.dtype}")
     expected = [
-        ("qrec", qrec, torch.float32, (nq, dim + 3)),
+        ("qrec", qrec, qrec.dtype, (nq, dim + 3)),
         ("qcol", qcol, torch.int32, (nq,)),
-        ("srec", srec, torch.float32, (npa, dim + 3)),
+        ("srec", srec, qrec.dtype, (npa, dim + 3)),
         ("scol", scol, torch.int32, (npa,)),
         ("blk_t", blk_t, torch.int32, (nb, rr)),
         ("start_tile", start_tile, torch.int32, (nb, rr)),
@@ -205,7 +215,7 @@ def _check(qrec, qcol, srec, scol, blk_t, start_tile, tile_off, items, dim):
         if t.device != qrec.device:
             raise ValueError(f"{name} is on {t.device}, qrec on {qrec.device}")
         if t.dtype != dtype:
-            raise TypeError(f"the CUDA kernel takes {name} as {dtype}, got {t.dtype}")
+            raise TypeError(f"the CUDA kernels take {name} as {dtype}, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
@@ -236,11 +246,11 @@ def span_sweep(
 ):
     """The sweep of one step.  Returns (force (nb*Q, d), loss (nb*Q,), count
     (nb*Q,) int32, zero (nb*Q,) int32) per query slot.  CPU tensors go
-    through the plain version; CUDA tensors (f32 only, d <= 8) through the
+    through the plain version; CUDA tensors (f32 or f64, any d) through a
     kernel, on the current stream, without synchronising, which needs
-    ``items``, the ``work_items`` table of these ``blk_t`` on the device.
-    The caller keeps the windows inside each row (start_tile + blk_t <= the
-    row's tiles)."""
+    ``items``, the ``work_items`` table of these ``blk_t`` on the device,
+    or a contiguous slice of it.  The caller keeps the windows inside each
+    row (start_tile + blk_t <= the row's tiles)."""
     kwargs = dict(dim=dim, L=L, rep_scale=rep_scale, additive=additive, items=items)
     args = (qrec, qcol, srec, scol, blk_t, start_tile, tile_off)
     if qrec.device.type == "cpu":
@@ -251,27 +261,32 @@ def span_sweep(
     lib = _build.load("span_sweep", _configure)
     if (lib.wembed_span_sweep_block(), lib.wembed_span_sweep_tile()) != (Q, ST):
         raise RuntimeError("csrc/span_sweep.cu and kernels/span_sweep.py disagree on Q or ST")
-    if dim > lib.wembed_span_sweep_max_dim():
-        raise ValueError(f"the CUDA kernel takes d <= {lib.wembed_span_sweep_max_dim()}, got {dim}")
-    nq, device = qrec.shape[0], qrec.device
+    nq, dtype, device = qrec.shape[0], qrec.dtype, qrec.device
     nb, rr = blk_t.shape
     n_items = items.shape[0]
-    scratch = torch.empty((n_items, dim + 3, Q), dtype=torch.float32, device=device)
-    force = torch.empty((nq, dim), dtype=torch.float32, device=device)
-    loss = torch.empty((nq,), dtype=torch.float32, device=device)
+    scratch = torch.empty((n_items, dim + 3, Q), dtype=dtype, device=device)
+    force = torch.empty((nq, dim), dtype=dtype, device=device)
+    loss = torch.empty((nq,), dtype=dtype, device=device)
     count = torch.empty((nq,), dtype=torch.int32, device=device)
     zero = torch.empty((nq,), dtype=torch.int32, device=device)
-    rc = lib.wembed_span_sweep(
-        *(t.data_ptr() for t in args), items.data_ptr(), n_items, nb, rr, dim, float(L),
-        float(rep_scale), int(bool(additive)), scratch.data_ptr(), force.data_ptr(),
-        loss.data_ptr(), count.data_ptr(), zero.data_ptr(), device.index,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    inputs = (*(t.data_ptr() for t in args), items.data_ptr(), n_items, nb, rr, dim)
+    outputs = (scratch.data_ptr(), force.data_ptr(), loss.data_ptr(), count.data_ptr(),
+               zero.data_ptr(), device.index, torch.cuda.current_stream(device).cuda_stream)
+    scalars = (float(L), float(rep_scale), int(bool(additive)))
+    general = dtype == torch.float64 or dim > lib.wembed_span_sweep_max_dim()
+    if general:
+        rc = lib.wembed_span_sweep_general(
+            *inputs, int(dtype == torch.float64), *scalars, *outputs
+        )
+    else:
+        rc = lib.wembed_span_sweep(*inputs, *scalars, *outputs)
     if rc != 0:
         msg = lib.wembed_span_sweep_error_string(rc).decode()
         raise RuntimeError(f"span_sweep kernel launch failed: {msg} (cudaError {rc})")
     span_sweep.launches += 1
+    span_sweep.launches_general += int(general)
     return force, loss, count, zero
 
 
-span_sweep.launches = 0  # kernel launches; the plain version is not counted
+span_sweep.launches = 0  # kernel launches, both kernels; the plain version is not counted
+span_sweep.launches_general = 0  # of which the general kernel's

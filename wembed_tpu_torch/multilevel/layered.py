@@ -84,6 +84,7 @@ class LayeredEmbedder:
         profile: bool = False,
         embedder_factory: Callable | None = None,
         device: torch.device | str = "cuda",
+        mesh=None,
     ):
         """``embedder_factory(graph, opts, *, timer, initial_coordinates,
         initial_weights, verbose, profile, device)`` builds the per-layer
@@ -92,8 +93,16 @@ class LayeredEmbedder:
         embedder surface, src/wembed.cpp:180-187).  Default: the
         single-device ``WEmbedEmbedder``; another factory's embedder has
         its public surface, ``path``, ``growth_events`` and
-        ``final_overflow`` included."""
+        ``final_overflow`` included.
+
+        ``mesh`` (``distributed.Mesh``) makes this one rank of a replicated
+        run: every rank takes rank 0's host seed stream before the
+        hierarchy is built, so the ranks build the same one, and only rank
+        0 writes checkpoints."""
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            mesh.share_host_stream()
         self.graph = graph
         self.opts = opts or EmbedderOptions()
         self.timer = timer or Timer()
