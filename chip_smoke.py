@@ -98,19 +98,42 @@ And the general kernels, the partial index and the replicated backend:
       girg100k on two ranks sharing the card over gloo (each rank's share
       and launches, the step time, the first step's reduced force against
       the single-device step, ranks identical, the loss and MAP limits;
-      the all-reduce's share from a separate timed run of 50 steps).
+      the all-reduce's share from a separate timed run of 50 steps); the
+      same spawn runs both graphs on the halo backend too (gathered
+      positions identical across the ranks, the first step's forces of
+      each rank's rows against the single-device step, counts exact, the
+      loss and MAP limits, the step time; each rank's peak memory on both
+      backends).
+
+And the halo backend and the native parser:
+  15. on the one-rank NCCL group of phase 14: the API with
+      ``distributedMode="halo"`` on girg10k (dense) and girg100k (span) to
+      convergence within the flat limits, each first force pass against
+      the single-device step's (f32 tolerance, counts exact); girg100k
+      with ``halo_resident_structures=True``, bitwise the halo run (one
+      rank's blocks are all of them), and at its converged positions each
+      rank's resident sweep for 2, 4 and 8 ranks bitwise the whole sweep
+      on its blocks; a profile of 20 further steps of each one-rank run,
+      with the host operations that take the most time, and each
+      collective's cost on one NCCL rank and on the two gloo ranks; layered girg100k through the halo backend (MAP at
+      least 0.74); ``embed --distributed halo`` under
+      ``torch.distributed.run`` (10,000 finite rows, the girg10k MAP
+      floor); girg100k's edge list through the native parser and the
+      Python loop (equal pairs, both times).
 
 Every kernel comparison also launches the kernel twice on the same inputs
 and fails unless the two outputs are bitwise equal.  The main paths must
 launch the fast kernels only.  The line before the last is a JSON summary
 of the kernels (time, bound, launches on the main paths: flat, layered,
-profiled, resumed, the general kernels' runs, replicated and with a
-partial index; the general kernels' times); the last line is ``{"ok":
+profiled, resumed, the general kernels' runs, replicated, with a partial
+index, and on the halo backend: one rank, resident, layered, two ranks;
+the general kernels' times); the last line is ``{"ok":
 true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import subprocess
@@ -801,9 +824,10 @@ def profile_steps(impl, steps: int = 20) -> dict:
     (each step ends in its one synchronisation): host ms a step, kernel
     launches and device ms a step, the device's idle share (kernel time is
     summed; the step's kernels run on one stream, so they do not overlap)
-    and the five kernels that take the most device time.  The profiler's
-    own overhead lengthens the host time, so the idle share is an upper
-    bound."""
+    and the five kernels that take the most device time; and the six host
+    operations that take the most host time of their own (self CPU ms a
+    step).  The profiler's own overhead lengthens the host time, so the
+    idle share is an upper bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -823,13 +847,17 @@ def profile_steps(impl, steps: int = 20) -> dict:
         launches += 1
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1000.0
     device_ms = sum(by_name.values())
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:6]
+    host_top = {a.key[:60]: a.self_cpu_time_total / 1000.0 / steps for a in host}
     if device_ms == 0.0:
-        return dict(steps=steps, step_wall_ms=wall_ms / steps, device="not measured")
+        return dict(steps=steps, step_wall_ms=wall_ms / steps, device="not measured",
+                    host_top_ms_per_step=host_top)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return dict(
         steps=steps, step_wall_ms=wall_ms / steps, device_ms_per_step=device_ms / steps,
         launches_per_step=launches / steps, idle_share=1.0 - device_ms / wall_ms,
         top_ms_per_step={name[:60]: ms / steps for name, ms in top},
+        host_top_ms_per_step=host_top,
     )
 
 
@@ -1336,17 +1364,38 @@ def first_step_single(graph) -> list:
     return recorded[0]
 
 
+def recording_halo():
+    """``HaloEmbedder`` keeping its first force pass (this rank's force and
+    coincident counts of its rows, its partial losses and count, the
+    overflow) on the host."""
+    from wembed_tpu_torch.distributed import HaloEmbedder
+
+    class RecordingHalo(HaloEmbedder):
+        first = None
+
+        def _force_pass(self, state):
+            out = super()._force_pass(state)
+            if self.first is None:
+                self.first = [t.detach().cpu() for t in out]
+            return out
+
+    return RecordingHalo
+
+
 def two_rank_job(mesh, paths: list[str]) -> list[dict]:
-    """One rank of ``two_ranks_one_card``, for each graph: a run to
-    convergence (``distributed/launch.py:run_replicated``, seed 1, d=2),
-    then REDUCE_STEPS steps from seed 1 again with every reduction timed
-    on the host clock between two synchronisations (which slows that run,
-    hence a run of its own) and the first reduced force pass kept."""
+    """One rank of ``two_ranks_one_card``, for each graph: a replicated
+    run to convergence (``distributed/launch.py:run_replicated``, seed 1,
+    d=2), then REDUCE_STEPS steps from seed 1 again with every reduction
+    timed on the host clock between two synchronisations (which slows that
+    run, hence a run of its own) and the first reduced force pass kept;
+    then a halo run to convergence (``run_halo``) and a halo step from seed
+    1 that keeps its first force pass.  Each run's peak device memory is
+    this rank's, from a reset just before it."""
     import torch
 
     from wembed_tpu_torch.core import EmbedderOptions
     from wembed_tpu_torch.distributed import MultiChipEmbedder
-    from wembed_tpu_torch.distributed.launch import run_replicated
+    from wembed_tpu_torch.distributed.launch import run_halo, run_replicated
     from wembed_tpu_torch.graphs import io
     from wembed_tpu_torch.utils import set_seed
 
@@ -1365,10 +1414,18 @@ def two_rank_job(mesh, paths: list[str]) -> list[dict]:
                 self.first = [None if t is None else t.cpu().numpy() for t in out]
             return out
 
+    def peak_run(run):
+        gc.collect()  # the last run's embedder, if a reference cycle holds it
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (res,) = run(mesh, [dict(graph_path=path, options=opts, seed=1, steps=None)])
+        return dict(res, peak_mem_bytes=torch.cuda.max_memory_allocated())
+
     opts = EmbedderOptions(embedding_dimension=2)
+    costs = collective_costs(mesh)
     results = []
     for path in paths:
-        (res,) = run_replicated(mesh, [dict(graph_path=path, options=opts, seed=1, steps=None)])
+        res = peak_run(run_replicated)
         set_seed(1)
         emb = TimedReduce(io.read_edge_list(path), opts, mesh=mesh, verbose=False)
         torch.cuda.synchronize()
@@ -1377,19 +1434,32 @@ def two_rank_job(mesh, paths: list[str]) -> list[dict]:
             emb.calculate_step()
         torch.cuda.synchronize()
         loop = time.perf_counter() - t0
-        results.append(dict(res, first=emb.first, reduce_share=emb.reduce_s / loop,
-                            timed_step_ms=loop * 1000.0 / REDUCE_STEPS))
+        reduce_share, first = emb.reduce_s / loop, emb.first
         del emb
+        t0 = time.perf_counter()
+        halo = peak_run(run_halo)
+        set_seed(1)
+        rec = recording_halo()(io.read_edge_list(path), opts, mesh=mesh, verbose=False)
+        rec.calculate_step()
+        halo.update(first=[t.numpy() for t in rec.first], rows=rec.plan.R,
+                    phase_s=time.perf_counter() - t0, collectives=costs)
+        del rec
+        results.append(dict(res, reduce_share=reduce_share, first=first,
+                            timed_step_ms=loop * 1000.0 / REDUCE_STEPS, halo=halo))
     return results
 
 
 def two_ranks_one_card(graphs: dict, references: dict) -> dict:
     """girg10k and girg100k d=2 on two ranks sharing the card over gloo,
-    to convergence (``two_rank_job``): each rank's share and launches, the
-    step time of the plain run and the all-reduce's share of the timed
-    one, the first step's reduced force against the single-device step
-    from the same state, positions identical across the ranks, the loss
-    limit, overflow 0 and the MAP floors."""
+    to convergence (``two_rank_job``), on the replicated backend: each
+    rank's share and launches, the step time of the plain run and the
+    all-reduce's share of the timed one, the first step's reduced force
+    against the single-device step from the same state, positions
+    identical across the ranks, the loss limit, overflow 0 and the MAP
+    floors; and on the halo backend: the same limits, the ranks' gathered
+    positions identical, the first step's forces of the ranks' rows against
+    the single-device step, its counts exact; each rank's peak memory on
+    both backends."""
     import numpy as np
     import torch
 
@@ -1419,6 +1489,7 @@ def two_ranks_one_card(graphs: dict, references: dict) -> dict:
             final_overflow=[r["overflow"] for r in res], growth_events=[r["growth_events"] for r in res],
             first_step=dict(max_abs_err=f_err, max_abs_force=f_scale, counts_equal=counts_equal),
             ranks_identical=bool(np.array_equal(res[0]["positions"], res[1]["positions"])),
+            peak_mem_bytes=[r["peak_mem_bytes"] for r in res],
         )
         row["MAP"] = map_only(graph.csr, res[0]["positions"], res[0]["weights"])
         print("two_ranks_" + name + " " + json.dumps(row))
@@ -1432,8 +1503,274 @@ def two_ranks_one_card(graphs: dict, references: dict) -> dict:
         check(row["total_loss"] <= LOSS_FACTOR * ref_total, f"two ranks {name}: total loss {row['total_loss']}")
         check(row["MAP"] >= references[name]["map_floor"], f"two ranks {name}: MAP {row['MAP']}")
         out[name] = row
+        out["halo_" + name] = two_halo_ranks(name, [r["halo"] for r in res], single, references[name], wall)
     return out
 
+
+def two_halo_ranks(name: str, res: list, single: list, reference: dict, wall: float) -> dict:
+    """The checks of the halo runs of ``two_ranks_one_card`` on one graph."""
+    import numpy as np
+    import torch
+
+    graph = reference["graph"]
+    n = graph.getNumVertices()
+    force = torch.cat([torch.as_tensor(r["first"][0]) for r in res])[:n]
+    zero = np.concatenate([r["first"][1] for r in res])[:n]
+    f_ok, f_err, f_scale = forces_agree(force, single[0])
+    count = sum(int(r["first"][4]) for r in res)
+    counts_equal = count == int(single[4]) and bool(np.array_equal(zero, single[1].numpy()))
+    row = dict(
+        graph=name, ranks=2, backend="gloo", rows=[r["rows"] for r in res],
+        held=[r["held"] for r in res], launches=[r["launches"] for r in res],
+        iterations=[r["iterations"] for r in res], loop_s=[r["seconds"] for r in res],
+        step_ms=res[0]["seconds"] * 1000.0 / res[0]["iterations"],
+        total_loss=res[0]["attract_loss"] + res[0]["repel_loss"],
+        reference_total_loss=reference["ref_total"],
+        final_overflow=[r["overflow"] for r in res], growth_events=[r["growth_events"] for r in res],
+        first_step=dict(max_abs_err=f_err, max_abs_force=f_scale, rep_count=[count, int(single[4])],
+                        counts_equal=counts_equal),
+        ranks_identical=bool(np.array_equal(res[0]["positions"], res[1]["positions"])),
+        peak_mem_bytes=[r["peak_mem_bytes"] for r in res],
+        halo_s=[r["phase_s"] for r in res], spawn_wall_s=wall,
+        collectives=[r["collectives"] for r in res],
+    )
+    row["MAP"] = map_only(graph.csr, res[0]["positions"], res[0]["weights"])
+    print("two_halo_ranks_" + name + " " + json.dumps(row))
+    kernel = "fused_dense" if res[0]["path"] == "dense" else "span_sweep"
+    for r in res:
+        check(r["launches"][kernel] == r["iterations"] > 0, f"two halo ranks {name}: launches {r['launches']}")
+        check(r["overflow"] == 0, f"two halo ranks {name}: final overflow {r['overflow']}")
+        check(r["iterations"] < 1000, f"two halo ranks {name}: {r['iterations']} iterations")
+        check(r["held"]["rows"][0] == -(-n // 2), f"two halo ranks {name}: a rank holds {r['held']['rows']} rows")
+    check(counts_equal, f"two halo ranks {name}: first-step counts {count} != {int(single[4])}")
+    check(f_ok, f"two halo ranks {name}: the first step's force differs by {f_err}")
+    check(row["ranks_identical"], f"two halo ranks {name}: the gathered positions differ")
+    check(row["total_loss"] <= LOSS_FACTOR * reference["ref_total"], f"two halo ranks {name}: total loss {row['total_loss']}")
+    check(row["MAP"] >= reference["map_floor"], f"two halo ranks {name}: MAP {row['MAP']}")
+    return row
+
+
+def halo_one_rank(graph, kernel: str, name: str, single: dict, reference: dict, **options) -> dict:
+    """The API with ``distributedMode="halo"`` on the one-rank NCCL group,
+    seed 1, to convergence (``options``: EmbedderOptions fields, which the
+    API does not set, build the ``HaloEmbedder`` directly): the flat limits
+    (below 1000 iterations, overflow 0, the loss limit, the MAP floor), one
+    launch a step, finite state; beside the single-device run ``single``."""
+    import dataclasses
+
+    import torch
+
+    from wembed_tpu_torch import api
+    from wembed_tpu_torch.distributed import HaloEmbedder
+
+    gc.collect()  # earlier embedders that reference cycles hold
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    api.setSeed(1)
+    if options:
+        opts = dataclasses.replace(api._translate_options(api.Options(embeddingDimension=2)), **options)
+        impl = HaloEmbedder(graph.csr, opts, verbose=False)
+    else:
+        impl = api.createEmbedder(graph, api.Options(embeddingDimension=2, distributedMode="halo")).impl
+    wall, launches = continue_run(impl)
+    loss = impl.get_loss()
+    coords = impl.get_coordinates()
+    row = dict(
+        graph=name, options=options, ranks=impl.mesh.size, backend=impl.mesh.backend, path=impl.path,
+        iterations=impl.iteration, launches=launches, growth_events=impl.growth_events,
+        final_overflow=impl.final_overflow, total_loss=loss.total,
+        reference_total_loss=reference["ref_total"], wall_s=wall,
+        step_ms=wall * 1000.0 / max(impl.iteration, 1), peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        single_wall_s=single["wall_s"], single_iterations=single["iterations"],
+        MAP=map_only(graph.csr, coords, impl.get_weights()),
+    )
+    print(f"halo_{name} " + json.dumps(row))
+    check(isinstance(impl, HaloEmbedder) and impl.mesh.size == 1, f"halo {name}: not one halo rank")
+    check(0 < impl.iteration < 1000, f"halo {name}: {impl.iteration} iterations")
+    check(impl.final_overflow == 0, f"halo {name}: final overflow {impl.final_overflow}")
+    check(launches[kernel] == impl.iteration, f"halo {name}: {launches[kernel]} launches for {impl.iteration} steps")
+    check_finite(impl.state, f"in halo {name}")
+    check(loss.total <= LOSS_FACTOR * reference["ref_total"], f"halo {name}: total loss {loss.total}")
+    check(row["MAP"] >= reference["map_floor"], f"halo {name}: MAP {row['MAP']}")
+    return dict(row, impl=impl, coords=coords, losses=(loss.attractive, loss.repulsive))
+
+
+def collective_costs(mesh, rows: int = 99825) -> dict:
+    """Milliseconds a call of each collective of the halo step at the sizes
+    of girg100k's (host clock, synchronised after every call, mean of 20
+    after one warm-up); and the host milliseconds an all-reduce takes to
+    return behind ~50 ms of queued device work (``torch.cuda._sleep``),
+    beside that work's: equal when the collective waits for the device."""
+    import torch
+
+    dev, size = mesh.device, mesh.size
+    per = -(-rows // size)
+    f64 = dict(dtype=torch.float64, device=dev)
+    calls = dict(
+        all_to_all=lambda: mesh.all_to_all(torch.zeros((size, 64, 2), device=dev)),
+        all_gather=lambda: mesh.all_gather(torch.zeros((per, 2), device=dev)),
+        reduce_scatter=lambda: mesh.reduce_scatter(torch.zeros((per * size, 3), **f64)),
+        all_reduce=lambda: mesh.all_reduce(torch.zeros(5, **f64)),
+    )
+    out = {}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call()
+            torch.cuda.synchronize()
+        out[name + "_ms"] = (time.perf_counter() - t0) * 50.0
+    x = torch.zeros(5, **f64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(100_000_000)
+    mesh.all_reduce(x)
+    out["all_reduce_behind_sleep_host_ms"] = (time.perf_counter() - t0) * 1000.0
+    torch.cuda.synchronize()
+    out["sleep_ms"] = (time.perf_counter() - t0) * 1000.0
+    return out
+
+
+def halo_first_step(graph, name: str) -> dict:
+    """The first force pass of a one-rank halo embedder (seed 1, d=2)
+    against the single-device step's from the same state: forces within
+    f32 tolerance, counts exact."""
+    import numpy as np
+
+    from wembed_tpu_torch import api
+
+    single = first_step_single(graph)
+    api.setSeed(1)
+    rec = recording_halo()(graph.csr, api._translate_options(api.Options(embeddingDimension=2)), verbose=False)
+    rec.calculate_step()
+    force, zero, att, rep, count, _ = rec.first
+    f_ok, f_err, f_scale = forces_agree(force[: graph.getNumVertices()], single[0])
+    row = dict(graph=name, max_abs_err=f_err, max_abs_force=f_scale, rep_count=[int(count), int(single[4])],
+               zero_counts_equal=bool(np.array_equal(zero.numpy(), single[1].numpy())),
+               att_loss=[float(att), float(single[2])], rep_loss=[float(rep), float(single[3])])
+    print("halo_first_step " + json.dumps(row))
+    check(f_ok, f"halo first step {name}: forces differ by up to {f_err}")
+    check(int(count) == int(single[4]) and row["zero_counts_equal"], f"halo first step {name}: counts differ")
+    check(losses_agree(float(att), float(single[2]), rec.state.positions.dtype), f"halo first step {name}: att loss")
+    return row
+
+
+def resident_sweeps(impl) -> dict:
+    """At a halo embedder's positions, the sweep of each rank's items of
+    its query blocks (``Share.cut(nb)``, P = 2, 4, 8; ``block_items``)
+    against the whole sweep from the same structures: bitwise on those
+    blocks' slots, zero on the others."""
+    import torch
+
+    from wembed_tpu_torch.core.step import Share
+    from wembed_tpu_torch.kernels import span_sparse, span_sweep
+
+    s = impl._span_structures()
+    idx = impl._index
+    t = idx.tensors(impl.device)
+    kw = dict(dim=idx.d, L=impl.opts.edge_length, rep_scale=impl.opts.repulsion_scale,
+              additive=impl.opts.additive_weights)
+    whole = span_sweep.span_sweep(s.qrec, s.qcol, s.srec, s.scol, s.blk_t, s.start_tile, t.tile_off,
+                                  items=impl._items, **kw)
+    q = span_sweep.Q
+    # the JAX package's resident layout would gather ceil(W / P) tiles of 256
+    # member rows a rank every step; the port keeps the NPA member records
+    row = dict(nb=idx.nb, work_tiles=idx.w, items=int(impl._items.shape[0]), npa=idx.npa,
+               compact_rows_a_rank={p: -(-idx.w // p) * span_sweep.ST for p in (1, 2, 4, 8)},
+               partitions={})
+    for ranks in (2, 4, 8):
+        equal, tiles = True, []
+        for rank in range(ranks):
+            b0, b1 = Share(rank, ranks, None).cut(idx.nb)
+            lo, hi = span_sparse.block_items(idx, b0, b1)
+            items = impl._items[lo:hi]
+            part = span_sweep.span_sweep(s.qrec, s.qcol, s.srec, s.scol, s.blk_t, s.start_tile, t.tile_off,
+                                         items=items, **kw)
+            equal &= all(bool(torch.equal(p[b0 * q : b1 * q], w[b0 * q : b1 * q]))
+                         and not p[: b0 * q].any() and not p[b1 * q :].any() for p, w in zip(part, whole))
+            tiles.append(int(items[:, 3].sum()))
+        row["partitions"][ranks] = dict(bitwise_equal=equal, tiles_a_rank=tiles)
+        check(equal, f"resident sweep of {ranks} ranks differs from the whole sweep")
+    print("halo_resident_sweeps " + json.dumps(row))
+    return row
+
+
+def halo_layered(graph, single_map: float) -> dict:
+    """The layered API run with ``distributedMode="halo"`` on one rank,
+    girg100k: every layer below 1000 iterations with overflow 0, the
+    finest layer on the halo backend, MAP at least 0.74."""
+    import dataclasses
+
+    from wembed_tpu_torch import api
+
+    api.setSeed(1)
+    embedder = api.createEmbedder(
+        graph, api.Options(embeddingDimension=2, layeredEmbedding=True, distributedMode="halo")
+    )
+    wall, launches = continue_run(embedder.impl)
+    impl = embedder.impl
+    for r in impl.layer_records:
+        print("layer_halo " + json.dumps(dataclasses.asdict(r)))
+    row = dict(layers=len(impl.layer_records), iterations=impl.iteration, launches=launches, wall_s=wall,
+               halo_layer_n=[r.n for r in impl.layer_records if r.n >= 4096],
+               MAP=map_only(graph.csr, impl.get_coordinates(), impl.get_weights()), single_MAP=single_map)
+    print("halo_layered " + json.dumps(row))
+    check(type(impl._current).__name__ == "HaloEmbedder", "halo layered: the finest layer is not halo")
+    for r in impl.layer_records:
+        check(0 < r.iterations < 1000 and r.final_overflow == 0, f"halo layered: layer n={r.n}")
+    target = MAP_FACTOR * MAP_LAYERED_TARGET
+    check(row["MAP"] >= target, f"halo layered MAP {row['MAP']} < {target}")
+    return row
+
+
+def halo_cli(tmp: Path) -> dict:
+    """``embed --distributed halo`` under ``torch.distributed.run`` with one
+    rank: 10,000 finite rows and the flat girg10k MAP floor."""
+    import numpy as np
+
+    from wembed_tpu_torch import api
+
+    out = tmp / "girg10k_halo.csv"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+         "-m", "wembed_tpu_torch.cli.embed", "-i", str(GIRG10K), "-o", str(out), "--seed", "1",
+         "--dim", "2", "--distributed", "halo"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"halo CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+    rows = np.loadtxt(out, delimiter=",")
+    graph = api.graphFromEdgeListFile(str(GIRG10K))
+    row = dict(ranks=1, wall_s=wall, rows=int(rows.shape[0]), finite=bool(np.isfinite(rows).all()),
+               MAP=map_only(graph.csr, rows[:, 1:3], rows[:, 3]))
+    print("halo_cli " + json.dumps(row))
+    check(row["rows"] == 10000 and row["finite"], f"halo CLI: {row['rows']} rows, finite {row['finite']}")
+    check(row["MAP"] >= MAP_FLAT_GIRG10K, f"halo CLI: MAP {row['MAP']}")
+    return row
+
+
+def parser_times() -> dict:
+    """girg100k's edge list through the native parser and the Python loop:
+    equal pairs, both times (host clock, best of 3 for the parser)."""
+    import numpy as np
+
+    from wembed_tpu_torch.graphs import io
+
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        native = io._read_pairs_native(str(GIRG100K), "#")
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    loop = io._read_pairs_python(str(GIRG100K), "#", None)
+    loop_s = time.perf_counter() - t0
+    row = dict(file_bytes=GIRG100K.stat().st_size, pairs=int(native.shape[0]), native_s=min(times),
+               python_s=loop_s, equal=bool(np.array_equal(native, loop)))
+    print("parser_girg100k " + json.dumps(row))
+    check(row["equal"], "the native parser's pairs differ from the Python loop's")
+    return row
 
 
 def main() -> int:
@@ -1464,6 +1801,7 @@ def main() -> int:
 
 
 def run_phases(kind, gen_proc, gen_t0) -> int:
+    import numpy as np
     import torch
 
     from wembed_tpu_torch import api
@@ -1799,6 +2137,40 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
         dict(girg10k=dict(graph=graph10k, ref_total=dense_ref_total, map_floor=MAP_FLAT_GIRG10K),
              girg100k=dict(graph=graph, ref_total=ref_total, map_floor=map_floor)),
     )
+
+    # ---- phase 15: the halo backend on the one-rank NCCL group (the two
+    # gloo ranks ran in phase 14's spawn), and the native edge-list parser
+    t15 = time.perf_counter()
+    from wembed_tpu_torch.distributed import make_mesh
+
+    halo_mesh = make_mesh()
+    refs = dict(girg10k=dict(ref_total=dense_ref_total, map_floor=MAP_FLAT_GIRG10K),
+                girg100k=dict(ref_total=ref_total, map_floor=map_floor))
+    halo_dense = halo_one_rank(graph10k, "fused_dense", "girg10k", single_dense, refs["girg10k"])
+    print("profile_halo_girg10k " + json.dumps(profile_steps(halo_dense.pop("impl"))))
+    halo_first_step(graph10k, "girg10k")
+    halo_span = halo_one_rank(graph, "span_sweep", "girg100k", single_span, refs["girg100k"])
+    print("profile_halo_girg100k " + json.dumps(profile_steps(halo_span.pop("impl"))))
+    halo_first_step(graph, "girg100k")
+    halo_res = halo_one_rank(graph, "span_sweep", "girg100k_resident", single_span, refs["girg100k"],
+                             halo_resident_structures=True)
+    same = bool(np.array_equal(halo_res["coords"], halo_span["coords"])) and (
+        halo_res["losses"] == halo_span["losses"])
+    print("halo_resident_one_rank " + json.dumps(dict(bitwise_equal_to_halo_run=same)))
+    check(same, "resident girg100k on one rank differs from the halo run (the same blocks and items)")
+    resident_sweeps(halo_res["impl"])
+    del halo_res["impl"]
+    for row in (halo_dense, halo_span, halo_res):
+        del row["coords"]
+    halo_layers = halo_layered(graph, layered["MAP"])
+    with tempfile.TemporaryDirectory() as tmp:
+        halo_cli(Path(tmp))
+    parser_times()
+    print("nccl_one_rank_collectives " + json.dumps(collective_costs(halo_mesh)))
+    print("phase15 " + json.dumps(dict(seconds=time.perf_counter() - t15,
+                                       two_rank_halo_s=two_ranks["halo_girg10k"]["halo_s"]
+                                       + two_ranks["halo_girg100k"]["halo_s"])))
+
     general_total = {k: sum(r["launches_general"][k] for r in general_runs.values())
                      for k in ("fused_dense", "span_sweep")}
 
@@ -1821,6 +2193,10 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
             "launches_replicated": replicated_dense["launches"]["fused_dense"],
             "launches_replicated_two_ranks": [r["fused_dense"] for r in two_ranks["girg10k"]["launches"]],
             "launches_partial_index": partial["launches"]["fused_dense"],
+            "launches_halo": halo_dense["launches"]["fused_dense"],
+            "launches_halo_resident": halo_res["launches"]["fused_dense"],
+            "launches_halo_layered": halo_layers["launches"]["fused_dense"],
+            "launches_halo_two_ranks": [r["fused_dense"] for r in two_ranks["halo_girg10k"]["launches"]],
             "general": {k: general_timing(v) for k, v in general_dense.items()},
             "max_abs_err": girg["max_abs_err"],
             "ms": girg["ms"],
@@ -1844,6 +2220,10 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
             "launches_replicated_layered": replicated_layers["launches"]["span_sweep"],
             "launches_replicated_two_ranks": [r["span_sweep"] for r in two_ranks["girg100k"]["launches"]],
             "launches_partial_index": partial["launches"]["span_sweep"],
+            "launches_halo": halo_span["launches"]["span_sweep"],
+            "launches_halo_resident": halo_res["launches"]["span_sweep"],
+            "launches_halo_layered": halo_layers["launches"]["span_sweep"],
+            "launches_halo_two_ranks": [r["span_sweep"] for r in two_ranks["halo_girg100k"]["launches"]],
             "general": {k: general_timing(v) for k, v in general_span.items()},
             "max_abs_err": girg_span["max_abs_err"],
             "ms": girg_span["ms"],

@@ -244,7 +244,7 @@ def test_run_ranks_runs_on_the_card_unless_asked(monkeypatch):
     "options,error,match",
     [
         (api.Options(distributedMode="replicated", numDevices=2), ValueError, "numDevices=2"),
-        (api.Options(distributedMode="halo"), NotImplementedError, "item 16"),
+        (api.Options(distributedMode="halo", numDevices=2), ValueError, "numDevices=2"),
         (api.Options(distributedMode="ring"), ValueError, "unknown distributedMode"),
     ],
 )

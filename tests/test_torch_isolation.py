@@ -1,6 +1,5 @@
 """The port stands alone: it imports no jax, never falls back from CUDA to
-the CPU, and raises on the paths it does not run yet (the cell layout and
-the halo backend)."""
+the CPU, and raises on the path it does not run yet (the cell layout)."""
 
 import os
 import subprocess
@@ -30,7 +29,7 @@ def test_no_module_imports_jax():
         "assert len(names) > 10, names\n"
         "for name in ('multilevel.layered', 'multilevel.label_prop', 'eval.device', 'cli.evaluate',\n"
         "             'core.checkpoint', 'draw.svg', 'draw.ipe', 'draw.animate',\n"
-        "             'distributed.mesh', 'distributed.step', 'distributed.launch'):\n"
+        "             'distributed.mesh', 'distributed.step', 'distributed.launch', 'distributed.halo'):\n"
         "    assert 'wembed_tpu_torch.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'wembed_tpu.')) or m == 'wembed_tpu')\n"
         "assert not bad, bad\n"
@@ -76,18 +75,19 @@ def test_unported_options_raise(opts):
 
 @pytest.mark.parametrize("surface", ["api", "cli"])
 def test_unported_api_modes_raise(surface, capsys):
-    """The halo backend stops naming its ROADMAP item, through the API and
-    through the CLI."""
+    """Both multi-device backends are ported (replicated and halo); a
+    distributed mode that neither package has stops, through the API
+    (naming the modes) and through the CLI (its choices)."""
     if surface == "api":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 16"):
-            api.createEmbedder(api.Graph(_small_graph()), api.Options(distributedMode="halo"), device="cpu")
+        with pytest.raises(ValueError, match="'replicated', or 'halo'"):
+            api.createEmbedder(api.Graph(_small_graph()), api.Options(distributedMode="ring"), device="cpu")
     else:
         from wembed_tpu_torch.cli import embed
 
         graph = os.path.join(REPO, "assets", "small_graph.edg")
         with pytest.raises(SystemExit):
-            embed.main(["-i", graph, "--distributed", "halo"], device="cpu")
-        assert "ROADMAP.md, Queue 1, item 16" in capsys.readouterr().err
+            embed.main(["-i", graph, "--distributed", "ring"], device="cpu")
+        assert "invalid choice: 'ring'" in capsys.readouterr().err
 
 
 def test_kernel_wrapper_uses_plain_version_only_for_cpu_tensors():

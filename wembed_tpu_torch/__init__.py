@@ -11,9 +11,10 @@ tensors run.
 The port runs the flat embedding — the dense path (n <= dense_threshold),
 the span path above it, and negative sampling — the layered (multilevel)
 embedding over it (``multilevel``), the profiled step, checkpoints
-(``core/checkpoint.py``), the evaluation metrics (``eval``) and drawing
-(``draw``).  A partial index, the cell layout and distributed runs raise
-``NotImplementedError`` naming their ROADMAP item.
+(``core/checkpoint.py``), the evaluation metrics (``eval``), drawing
+(``draw``), a partial index, and the replicated and halo multi-device
+backends (``distributed``).  The cell layout raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from . import core, graphs, utils

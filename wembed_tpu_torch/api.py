@@ -12,10 +12,10 @@ replicated multi-device backend, with an explicit ``device`` on
     emb.calculateEmbedding()
     coords = emb.getCoordinates()
 
-``distributedMode="replicated"`` runs one rank a process
+``distributedMode="replicated"`` (the replicated backend) and
+``distributedMode="halo"`` (the vertex-sharded one) run one rank a process
 (``distributed/``): start them with ``python -m torch.distributed.run``,
-or run one process alone.  ``distributedMode="halo"`` raises
-``NotImplementedError``.
+or run one process alone.
 """
 
 from __future__ import annotations
@@ -179,6 +179,9 @@ class Embedder:
         return Graph(self._embedder.graph)
 
     def getCoordinates(self) -> List[List[float]]:
+        """The n coordinates.  Under ``distributedMode="halo"`` each rank
+        holds its own rows, so this (and ``getCoordinatesInto``,
+        ``writeCoordinates``) is a collective: every rank calls it."""
         return self._embedder.get_coordinates().tolist()
 
     def getWeights(self) -> List[float]:
@@ -197,6 +200,8 @@ class Embedder:
         return self._embedder.get_loss()
 
     def writeCoordinates(self, filePath: str, writeWeights: bool = True) -> None:
+        """Write the coordinates (a collective under halo, as
+        ``getCoordinates``; every rank that calls it writes the file)."""
         io.write_coordinates(
             filePath,
             self._embedder.get_coordinates(),
@@ -213,11 +218,11 @@ def createEmbedder(
     graph: Graph, options: Options, device: torch.device | str = "cuda"
 ) -> Embedder:
     """(reference src/wembed.cpp:162-188) — a flat or layered embedder on
-    ``device``.  With ``distributedMode="replicated"`` the flat embedder
-    (or every layer of at least ``max(distributedMinLayerSize, 2 x ranks)``
-    vertices) is a ``MultiChipEmbedder`` on this rank's share of
-    ``device`` (``cuda``: ``cuda:LOCAL_RANK``); ``numDevices`` must be the
-    number of ranks.  A rank is a process, so each joins the process group
+    ``device``.  With ``distributedMode="replicated"`` (``"halo"``) the
+    flat embedder (or every layer of at least ``max(distributedMinLayerSize,
+    2 x ranks)`` vertices) is a ``MultiChipEmbedder`` (``HaloEmbedder``) on
+    this rank's share of ``device`` (``cuda``: ``cuda:LOCAL_RANK``);
+    ``numDevices`` must be the number of ranks.  A rank is a process, so each joins the process group
     from the environment (``WEMBED_COORDINATOR`` / ``WEMBED_NUM_PROCESSES``
     / ``WEMBED_PROCESS_ID``, or ``torch.distributed.run``'s variables)
     whether or not ``multiHost`` is set, and makes a group of its own when
@@ -228,25 +233,22 @@ def createEmbedder(
             f"unknown distributedMode {options.distributedMode!r} "
             "(expected 'none', 'replicated', or 'halo')"
         )
-    if options.distributedMode == "halo":
-        raise NotImplementedError(
-            "distributedMode='halo' is not ported yet: ROADMAP.md, Queue 1, item 16"
-        )
-    if options.distributedMode == "replicated":
-        from .distributed import MultiChipEmbedder, make_mesh
+    if options.distributedMode != "none":
+        from .distributed import HaloEmbedder, MultiChipEmbedder, make_mesh
 
+        dist_cls = HaloEmbedder if options.distributedMode == "halo" else MultiChipEmbedder
         mesh = make_mesh(None if options.numDevices < 0 else options.numDevices, device=device)
         if options.layeredEmbedding:
             return Embedder(
                 LayeredEmbedder(
                     graph.csr, opts, verbose=False, expansion_mode=_expansion_mode(options),
                     embedder_factory=_distributed_layer_factory(
-                        mesh, options.distributedMinLayerSize
+                        dist_cls, mesh, options.distributedMinLayerSize
                     ),
                     device=mesh.device, mesh=mesh,
                 )
             )
-        return Embedder(MultiChipEmbedder(graph.csr, opts, mesh=mesh, verbose=False))
+        return Embedder(dist_cls(graph.csr, opts, mesh=mesh, verbose=False))
     if options.layeredEmbedding:
         return Embedder(
             LayeredEmbedder(
@@ -257,20 +259,20 @@ def createEmbedder(
     return Embedder(WEmbedEmbedder(graph.csr, opts, verbose=False, device=device))
 
 
-def _distributed_layer_factory(mesh, min_layer_size: int):
-    """Per-layer embedder factory of a layered replicated run
+def _distributed_layer_factory(dist_cls, mesh, min_layer_size: int):
+    """Per-layer embedder factory of a layered multi-device run
     (``wembed_tpu/api.py:_distributed_layer_factory``): layers below
     ``max(min_layer_size, 2 x ranks)`` vertices run on a single-device
     ``WEmbedEmbedder`` on every rank, since at coarse sizes the step's
-    collective costs more than its work; the others on the replicated
-    backend, where ``profile`` runs the normal step.  The ranks took rank
-    0's host stream when the ``LayeredEmbedder`` was built."""
-    from .distributed import MultiChipEmbedder
+    collective costs more than its work; the others on ``dist_cls``
+    (``MultiChipEmbedder`` or ``HaloEmbedder``), where ``profile`` runs the
+    normal step.  The ranks took rank 0's host stream when the
+    ``LayeredEmbedder`` was built."""
 
     def factory(layer_graph, opts, **kw):
         if layer_graph.num_vertices < max(min_layer_size, 2 * mesh.size):
             return WEmbedEmbedder(layer_graph, opts, **kw)
-        return MultiChipEmbedder(layer_graph, opts, mesh=mesh, share_stream=False, **kw)
+        return dist_cls(layer_graph, opts, mesh=mesh, share_stream=False, **kw)
 
     return factory
 

@@ -2,17 +2,19 @@
 
 Same flags as ``wembed_tpu/cli/embed.py`` (the reference's cli_wembed,
 src/cli_wembed/main.cpp:40-84).  Runs on the CUDA device.
-``--distributed replicated`` runs the replicated backend, one rank a
-process: under ``python -m torch.distributed.run`` each rank makes its own
-mesh, and rank 0 alone writes the output and prints the timings.
-``--distributed halo`` stops with a message that names the ROADMAP item
-that ports it.  ``--profile-timings`` prints the profiled step's phase
+``--distributed replicated`` runs the replicated backend and
+``--distributed halo`` the vertex-sharded one, one rank a process: under
+``python -m torch.distributed.run`` each rank makes its own mesh, and rank
+0 alone writes the output (every rank takes part in gathering it) and
+prints the timings.  ``--profile-timings`` prints the profiled step's phase
 tree (index / attracting_forces / repelling_forces / apply_forces /
 gravity / position_change), timed by CUDA events.
 
     python -m wembed_tpu_torch.cli.embed -i assets/girg10k.edg -o emb.csv --seed 1 --dim 2
     python -m torch.distributed.run --standalone --nproc-per-node 1 -m wembed_tpu_torch.cli.embed \
         -i assets/girg10k.edg -o emb.csv --seed 1 --dim 2 --distributed replicated
+    python -m torch.distributed.run --standalone --nproc-per-node 1 -m wembed_tpu_torch.cli.embed \
+        -i assets/girg10k.edg -o emb.csv --seed 1 --dim 2 --distributed halo
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import sys
 
 from .. import api as wembed
 from ..distributed.mesh import process_rank, shutdown
+from ..graphs import io
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -74,8 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Learning rate of the embedding process")
     p.add_argument("--distributed", choices=["replicated", "halo"], default="",
                    help="Multi-device execution, one rank a process: 'replicated' "
-                   "(replicated state, work-partitioned forces); 'halo' is not "
-                   "ported yet")
+                   "(replicated state, work-partitioned forces) or 'halo' "
+                   "(vertex-sharded state, halo exchange)")
     p.add_argument("--num-devices", type=int, default=-1,
                    help="Ranks in the process group (-1: as many as there are)")
     p.add_argument("--multihost", action="store_true",
@@ -90,8 +93,6 @@ def main(argv=None, device: str = "cuda") -> int:
     """Embed as the flags say, on ``device``."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.distributed == "halo":
-        parser.error("not ported yet, --distributed halo: ROADMAP.md, Queue 1, item 16")
     if args.seed != -1:
         wembed.setSeed(args.seed)
 
@@ -124,11 +125,15 @@ def main(argv=None, device: str = "cuda") -> int:
 
     embedder.calculateEmbedding()
 
+    if args.embedding:
+        # a collective under halo (each rank holds its rows): every rank
+        # gathers, rank 0 writes
+        coords = embedder.impl.get_coordinates()
     if process_rank() == 0:
         if args.timings or args.profile_timings:
             print(wembed.timingsToString(embedder.getTimings()))
         if args.embedding:
-            embedder.writeCoordinates(args.embedding)
+            io.write_coordinates(args.embedding, coords, embedder.impl.get_weights())
     return 0
 
 

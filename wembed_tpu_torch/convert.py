@@ -11,7 +11,7 @@ or the port's own, into an embedder; by hand:
     arrays = load_jax_checkpoint("run.npz")
     state, weights = state_from_numpy(arrays, device="cuda", dtype=torch.float32)
     embedder.set_weights(weights)
-    embedder.state = state
+    embedder.load_host_state(state)
 """
 
 from __future__ import annotations

@@ -34,9 +34,12 @@ and ``span_scale`` is 1, so the JAX package's ``load_checkpoint`` reads the
 port's files too.
 
 A replicated multi-device run (``distributed/step.py``) holds the same
-state on every rank, so its file has the same format: rank 0 writes it
-and every rank waits on a barrier; every rank loads it.  A file from such
-a run loads into a single-device embedder, and the other way round.
+state on every rank, a halo run (``distributed/halo.py``) each rank's
+range of it; either file has the same format: every rank gathers the whole
+state (``host_state``), rank 0 writes it and every rank waits on a
+barrier; every rank loads it, and a halo rank keeps its rows.  A file from
+any of them loads into a single-device embedder, a replicated one or a
+halo one of any rank count, and the other way round.
 
 CSV import and export for reference interop live in ``graphs.io``
 (``write_coordinates`` / ``read_coordinates``).
@@ -55,7 +58,7 @@ from ..utils import rng as rng_mod
 
 
 def _flat_arrays(embedder) -> dict:
-    s = embedder.state
+    s = embedder.host_state
     gen = s.generator
 
     def host(t):
@@ -93,18 +96,19 @@ def save_checkpoint(path: str, embedder) -> None:
     the replicated backend too) to ``path`` (.npz, appended when
     missing)."""
     layered = hasattr(embedder, "hierarchy")
-    mesh = getattr(embedder, "mesh", None)  # a replicated run's
+    mesh = getattr(embedder, "mesh", None)  # a multi-device run's
+    # every rank gathers the state (a halo rank holds its rows only)
+    if layered:
+        arrays = _flat_arrays(embedder._current)
+        arrays["layered"] = np.asarray(1)
+        arrays["current_layer"] = np.asarray(embedder.current_layer)
+        arrays["current_iteration"] = np.asarray(embedder.current_iteration)
+        arrays["num_layers"] = np.asarray(embedder.hierarchy.num_layers)
+        for i, layer in enumerate(embedder.hierarchy.layers[:-1]):
+            arrays[f"parent_{i}"] = layer.parent
+    else:
+        arrays = _flat_arrays(embedder)
     if mesh is None or mesh.rank == 0:
-        if layered:
-            arrays = _flat_arrays(embedder._current)
-            arrays["layered"] = np.asarray(1)
-            arrays["current_layer"] = np.asarray(embedder.current_layer)
-            arrays["current_iteration"] = np.asarray(embedder.current_iteration)
-            arrays["num_layers"] = np.asarray(embedder.hierarchy.num_layers)
-            for i, layer in enumerate(embedder.hierarchy.layers[:-1]):
-                arrays[f"parent_{i}"] = layer.parent
-        else:
-            arrays = _flat_arrays(embedder)
         np.savez(path, **arrays)
     if mesh is not None:
         mesh.barrier()
@@ -121,7 +125,7 @@ def _restore_flat(arrays: dict, embedder) -> None:
         state.generator.set_state(torch.as_tensor(arrays["generator_state"]))
     # the weights first: on the span path they rebuild the skeleton
     embedder._set_weights_internal(weights)
-    embedder.state = state
+    embedder.load_host_state(state)
     if embedder._index is None:
         return
     saved = arrays.get("blk_t")

@@ -113,12 +113,12 @@ class WEmbedEmbedder(SpanGrowthMixin):
         if initial_coordinates is None:
             initial_coordinates = random_positions(n, d, rng_mod.host_rng())
 
-        self._state = init_state(
+        self.load_host_state(init_state(
             np.asarray(initial_coordinates, dtype=np.float64),
             rng_mod.new_generator(self.device),
             self._dtype,
             self.device,
-        )
+        ))
         self._set_weights_internal(np.asarray(initial_weights, dtype=np.float64))
         self._presize_spans()
 
@@ -138,9 +138,21 @@ class WEmbedEmbedder(SpanGrowthMixin):
         if self._span:
             # the weight groups, hence the whole skeleton, follow the weights
             self._growth_events = 0
-            self._swap_index(
-                SpanIndex.build(w, self.opts, self.graph.edge_src, self.graph.col_idx)
-            )
+            self._swap_index(SpanIndex.build(w, self.opts, *self._span_edges()))
+
+    # the rows of the state tensors this embedder holds: all of them here;
+    # a halo rank (``distributed/halo.py``) holds its vertex range
+    def _own_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This embedder's rows of a whole (n, ...) tensor."""
+        return t
+
+    def _all_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole (n, ...) tensor of this embedder's rows of it."""
+        return t
+
+    def _span_edges(self) -> tuple[np.ndarray, np.ndarray]:
+        """The directed edges of the span path's neighbour correction."""
+        return self.graph.edge_src, self.graph.col_idx
 
     # span growth protocol: SpanGrowthMixin (core/span_driver.py)
     def _swap_index(self, index: SpanIndex) -> None:
@@ -153,7 +165,7 @@ class WEmbedEmbedder(SpanGrowthMixin):
 
     def _span_structures(self):
         return build_span_structures(
-            self._state.positions, self._inv_w, self._weights, self._dg.colors,
+            self._all_rows(self._state.positions), self._inv_w, self._weights, self._dg.colors,
             self._index, self.opts, self._blk_t,
         )
 
@@ -294,8 +306,27 @@ class WEmbedEmbedder(SpanGrowthMixin):
     def state(self, s: EmbedState) -> None:
         self._state = s
 
+    def load_host_state(self, s: EmbedState) -> None:
+        """Install a whole state (n rows a tensor, as ``host_state`` gives
+        it and a checkpoint restores it); the embedder keeps its own rows
+        of it."""
+        self._state = dataclasses.replace(
+            s, positions=self._own_rows(s.positions), adam_m=self._own_rows(s.adam_m),
+            adam_v=self._own_rows(s.adam_v),
+        )
+
+    @property
+    def host_state(self) -> EmbedState:
+        """The whole state, n rows a tensor, as a checkpoint holds it (a
+        collective under halo: every rank takes part)."""
+        s = self._state
+        return dataclasses.replace(
+            s, positions=self._all_rows(s.positions), adam_m=self._all_rows(s.adam_m),
+            adam_v=self._all_rows(s.adam_v),
+        )
+
     def get_coordinates(self) -> np.ndarray:
-        return self._state.positions.detach().to("cpu", torch.float64).numpy()
+        return self._all_rows(self._state.positions).detach().to("cpu", torch.float64).numpy()
 
     def get_weights(self) -> np.ndarray:
         return self._weights_np.copy()
@@ -314,7 +345,9 @@ class WEmbedEmbedder(SpanGrowthMixin):
             coordinates = current
         self._state = dataclasses.replace(
             self._state,
-            positions=torch.as_tensor(coordinates, dtype=self._dtype, device=self.device),
+            positions=self._own_rows(
+                torch.as_tensor(coordinates, dtype=self._dtype, device=self.device)
+            ),
         )
         self._presize_spans()
 

@@ -53,7 +53,13 @@ def _edge_geometry(positions: torch.Tensor, src: torch.Tensor, dst: torch.Tensor
     """(pos[dst] - pos[src], dist2) of the directed edges (src, dst), dist2
     summed over dimensions in ascending order as the force kernels sum it,
     so that ``dist2 > 0`` is their own coincidence test."""
-    diff = positions[dst] - positions[src]
+    return _edge_geometry_between(positions, positions, src, dst)
+
+
+def _edge_geometry_between(src_rows: torch.Tensor, dst_rows: torch.Tensor, src, dst):
+    """``_edge_geometry`` with the sources and destinations read from two
+    tables (a halo rank's own rows and its ext table)."""
+    diff = dst_rows[dst] - src_rows[src]
     dist2 = torch.zeros_like(diff[:, 0])
     for k in range(diff.shape[1]):
         dist2 = dist2 + diff[:, k] * diff[:, k]
@@ -98,16 +104,24 @@ def attraction_forces(
     lo, hi, row_ptr = edge_share(dg.row_ptr, e, share)
     src, dst = dg.edge_src[lo:hi], dg.edge_dst[lo:hi]
     diff, dist2 = _edge_geometry(positions, src, dst)
-    dist = torch.sqrt(dist2)
     iw = inv_w.to(dtype)
-    ws = _weight_scaling(iw[src], iw[dst], opts.additive_weights)
+    kicks = random_unit_vectors(generator, e, d, dtype)[lo:hi]
+    force_e, loss = edge_attraction(diff, dist2, iw[src], iw[dst], opts, kicks)
+    return _segment_sum(force_e, row_ptr), loss
+
+
+def edge_attraction(diff, dist2, iw_src, iw_dst, opts: EmbedderOptions, kicks):
+    """(force a directed edge (E, d), attraction loss) of edges with
+    geometry (``diff``, ``dist2``, ``_edge_geometry``) and inverse weights:
+    the hinge pull, or the edge's kick where its endpoints coincide."""
+    dist = torch.sqrt(dist2)
+    ws = _weight_scaling(iw_src, iw_dst, opts.additive_weights)
     L = float(opts.edge_length)
     active = dist * ws > L
     coeff = torch.where(active, opts.attraction_scale * ws / torch.clamp_min(dist, 1e-30), 0.0)
-    kicks = random_unit_vectors(generator, e, d, dtype)[lo:hi]
     force_e = torch.where((dist2 > 0)[:, None], coeff[:, None] * diff, kicks)
     loss = torch.sum(torch.where(active, dist - L / ws, 0.0))
-    return _segment_sum(force_e, row_ptr), loss
+    return force_e, loss
 
 
 def coincident_edge_counts(positions: torch.Tensor, dg: DeviceGraph) -> torch.Tensor:

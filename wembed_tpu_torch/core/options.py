@@ -5,7 +5,8 @@ EmbedderOptions (reference:
 src/embeddingLib/include/embedder/EmbedderOptions.hpp:21-51) with identical
 defaults, plus ``dtype``, ``repulsion_mode``, ``dense_threshold`` and the
 span path's ``window_capacity``, ``span_layout`` and
-``span_resize_interval``.  The JAX package's TPU kernel switches
+``span_resize_interval``, and the halo backend's
+``halo_resident_structures``.  The JAX package's TPU kernel switches
 (``fused_dense``, ``fused_span``) have no counterpart: the port picks its
 kernel from the device of the tensors.
 
@@ -90,6 +91,13 @@ class EmbedderOptions:
     # the embedding loop pauses every this many iterations so that
     # over-provisioned span windows can shrink; 0 disables the pauses
     span_resize_interval: int = 50
+    # halo backend only (``distributed/halo.py``): each rank sweeps its
+    # range of the query blocks, ceil(nb / P) of them, instead of a slice of
+    # the work items.  The equal-block partition balances queries, not
+    # tiles.  The member records stay whole on every rank: the JAX
+    # package's compact per-rank member buffer and its tile budget are TPU
+    # layouts the port leaves out (ROADMAP)
+    halo_resident_structures: bool = False
     debug_checks: bool = False
 
     def resolve_repulsion_mode(self, n: int) -> RepulsionMode:

@@ -85,17 +85,21 @@ def _apply_optimizer(opts, old_positions, force, state: EmbedState, t: int):
     return adam_update(old_positions, force, state.adam_m, state.adam_v, t, hp)
 
 
-def _apply_forces(state: EmbedState, opts: EmbedderOptions, force, zero_count):
+def _apply_forces(state: EmbedState, opts: EmbedderOptions, force, zero_count, n=None, own_rows=None):
     """Coincident kicks, the centre force and the optimizer update: the
     profiled step's ``apply_forces`` phase.  Returns (positions, m, v, t).
 
     Coincident-point kicks (NewWEmbedEmbedder.cpp:229-233): one random unit
     vector per vertex, scaled by its coincident-pair count.  Drawn every
     step and multiplied by the count, so that no host branch (and no
-    synchronisation) is needed to skip them; a zero count adds exactly 0."""
+    synchronisation) is needed to skip them; a zero count adds exactly 0.
+    A halo rank, whose state holds its rows of the graph's ``n``, passes
+    ``n`` and ``own_rows``, which picks its rows of the whole draw."""
     old_positions = state.positions
-    n, d = old_positions.shape
-    kicks = forces.random_unit_vectors(state.generator, n, d, old_positions.dtype)
+    d = old_positions.shape[1]
+    kicks = forces.random_unit_vectors(state.generator, n or old_positions.shape[0], d, old_positions.dtype)
+    if own_rows is not None:
+        kicks = own_rows(kicks)
     force = force + kicks * zero_count[:, None].to(old_positions.dtype)
 
     if opts.centre_scale != 0.0:

@@ -1,17 +1,20 @@
-// Host code for the multilevel hierarchy: sequential label-propagation
-// coarsening.  Not a device kernel: it runs once per hierarchy build.
+// Host code: sequential label-propagation coarsening for the multilevel
+// hierarchy, and the edge-list parser.  Not device kernels: the coarsening
+// runs once per hierarchy build, the parser once per graph read.
 //
 // Label propagation is inherently sequential (each node's move depends on
 // all earlier moves in the same sweep — reference
 // src/embeddingLib/src/partition/LabelPropagation.cpp:58-110), so it cannot
-// be vectorized without changing semantics.  The same two entry points as
-// wembed_tpu/_native/labelprop.cpp, with the same arithmetic, so both
-// packages build the same hierarchy.
+// be vectorized without changing semantics.  The same three entry points
+// as wembed_tpu/_native/labelprop.cpp, with the same arithmetic, so both
+// packages build the same hierarchy and read the same pairs.
 //
 // Exposed via a plain C ABI, loaded from Python with ctypes
-// (wembed_tpu_torch/multilevel/label_prop.py).
+// (wembed_tpu_torch/multilevel/label_prop.py, wembed_tpu_torch/graphs/io.py).
 
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <vector>
 
@@ -122,6 +125,62 @@ void wembed_aggressive_propagation(
     }
 
     std::memcpy(out_cluster, cluster.data(), n * sizeof(int32_t));
+}
+
+// Whitespace edge-list parser (the JAX package's wembed_parse_edge_list):
+// fills pairs[2*k], pairs[2*k+1] with the first two integers of every line
+// that has them; blank lines, lines starting with comment_char and lines
+// without two leading integers are skipped, and tokens after the second
+// integer are ignored.  Writes at most `capacity` pairs and returns the
+// number of pairs in the file, or -1 when the file cannot be read
+// (wembed_tpu_torch/graphs/io.py:read_edge_list).
+int64_t wembed_parse_edge_list(
+    const char* path, char comment_char, int64_t* pairs, int64_t capacity) {
+    FILE* f = fopen(path, "rb");
+    if (!f) return -1;
+    fseek(f, 0, SEEK_END);
+    const long size = ftell(f);
+    fseek(f, 0, SEEK_SET);
+    if (size < 0) {
+        fclose(f);
+        return -1;
+    }
+    std::vector<char> buf(size + 1);
+    if (size > 0 && fread(buf.data(), 1, size, f) != (size_t)size) {
+        fclose(f);
+        return -1;
+    }
+    fclose(f);
+    buf[size] = '\0';
+
+    int64_t count = 0;
+    const char* p = buf.data();
+    const char* endp = buf.data() + size;
+    while (p < endp) {
+        // skip leading whitespace
+        while (p < endp && (*p == ' ' || *p == '\t' || *p == '\r')) p++;
+        if (p >= endp) break;
+        if (*p == '\n') { p++; continue; }
+        if (*p == comment_char) {
+            while (p < endp && *p != '\n') p++;
+            continue;
+        }
+        char* next = nullptr;
+        const int64_t a = strtoll(p, &next, 10);
+        if (next == p) { while (p < endp && *p != '\n') p++; continue; }
+        p = next;
+        while (p < endp && (*p == ' ' || *p == '\t')) p++;
+        const int64_t b = strtoll(p, &next, 10);
+        if (next == p) { while (p < endp && *p != '\n') p++; continue; }
+        p = next;
+        while (p < endp && *p != '\n') p++;
+        if (count < capacity) {
+            pairs[2 * count] = a;
+            pairs[2 * count + 1] = b;
+        }
+        count++;
+    }
+    return count;
 }
 
 }  // extern "C"

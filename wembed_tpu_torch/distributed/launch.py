@@ -11,7 +11,7 @@ one).  The CUDA kernels are built before the ranks start, so two ranks
 never race to build the same library.
 
 ``run_replicated(mesh, jobs)`` runs the replicated backend on each job and
-returns its final state.
+returns its final state; ``run_halo(mesh, jobs)`` the halo backend.
 """
 
 from __future__ import annotations
@@ -74,26 +74,45 @@ def run_replicated(mesh: Mesh, jobs: list[dict]) -> list[dict]:
     """Each job on this rank, in order: a ``MultiChipEmbedder`` on
     ``graph`` (a CSRGraph, or ``graph_path`` to an edge list) with
     ``options`` (EmbedderOptions), from ``coords`` and ``weights`` (or the
-    host stream after ``setSeed(seed)``); ``steps`` calls of
-    ``calculate_step``, or ``calculate_embedding`` when it is None; then a
-    checkpoint to ``checkpoint``, if given.  Each job returns its final
-    state on the host, kernel launches, growth events, loop seconds and the
-    rank's shares (dense rows, work items, edges)."""
-    from ..core.checkpoint import save_checkpoint
+    host stream after ``setSeed(seed)``); or from the checkpoint
+    ``resume``, if given; with the span windows ``windows`` ((NB, R) tiles),
+    if given; ``steps`` calls of ``calculate_step``, or
+    ``calculate_embedding`` when it is None; then a checkpoint to
+    ``checkpoint``, if given.  Each job returns its final state on the
+    host, kernel launches, growth events, loop seconds, the rank's shares
+    (dense rows, work items, edges) and what the rank holds (state rows,
+    correction edges)."""
+    from .step import MultiChipEmbedder
+
+    return _run_jobs(mesh, jobs, MultiChipEmbedder)
+
+
+def run_halo(mesh: Mesh, jobs: list[dict]) -> list[dict]:
+    """``run_replicated``'s jobs on the halo backend (``HaloEmbedder``)."""
+    from .halo import HaloEmbedder
+
+    return _run_jobs(mesh, jobs, HaloEmbedder)
+
+
+def _run_jobs(mesh: Mesh, jobs: list[dict], embedder_class) -> list[dict]:
+    from ..core.checkpoint import load_checkpoint, save_checkpoint
     from ..graphs import io
     from ..kernels import launch_counts
     from ..utils import set_seed
-    from .step import MultiChipEmbedder
 
     results = []
     for job in jobs:
         graph = job.get("graph") or io.read_edge_list(job["graph_path"])
         if job.get("seed") is not None:
             set_seed(job["seed"])
-        emb = MultiChipEmbedder(
+        emb = embedder_class(
             graph, job["options"], mesh=mesh, initial_coordinates=job.get("coords"),
             initial_weights=job.get("weights"), verbose=False,
         )
+        if job.get("resume"):
+            load_checkpoint(job["resume"], emb)
+        if job.get("windows") is not None:  # a start with these span windows
+            emb._swap_index(emb._index._with_blk_t(job["windows"]))
         before = launch_counts()
         _sync(mesh)
         t0 = time.perf_counter()
@@ -112,13 +131,16 @@ def run_replicated(mesh: Mesh, jobs: list[dict]) -> list[dict]:
         if emb._items is not None:
             shares["work_items"] = emb._share.cut(int(emb._items.shape[0]))
             shares["total_items"] = int(emb._items.shape[0])
+        held = {"rows": tuple(s.positions.shape), "moments": tuple(s.adam_m.shape)}
+        if emb._index is not None:
+            held["correction_edges"] = int(emb._index.tensors(emb.device).edge_src.shape[0])
         results.append(dict(
             rank=mesh.rank, size=mesh.size, path=emb.path, iterations=emb.iteration,
             positions=emb.get_coordinates(), attract_loss=float(s.attract_loss),
             repel_loss=float(s.repel_loss), num_rep_forces=int(s.num_rep_forces),
             overflow=int(s.overflow), growth_events=emb.growth_events, seconds=seconds,
             launches={k: v - before[k] for k, v in launch_counts().items()},
-            shares=shares, weights=np.asarray(emb.get_weights()),
+            shares=shares, held=held, weights=np.asarray(emb.get_weights()),
         ))
         del emb
     return results

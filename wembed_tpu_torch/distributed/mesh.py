@@ -1,4 +1,4 @@
-"""Process groups for the replicated multi-device backend.
+"""Process groups for the multi-device backends.
 
 Counterpart of ``wembed_tpu/distributed/mesh.py``.  JAX runs one process
 over P devices and shards work over a ``jax.sharding.Mesh``; the port runs
@@ -8,8 +8,16 @@ the "mesh" is the default process group with that rank's device.
     python -m torch.distributed.run --standalone --nproc-per-node 1 -m wembed_tpu_torch.cli.embed \\
         -i graph.edg -o emb.csv --dim 2 --distributed replicated
 
+The collectives: ``all_reduce`` (both backends), and for the halo backend
+``all_to_all`` (``all_to_all_single``), ``all_gather``
+(``all_gather_into_tensor``) and ``reduce_scatter``
+(``reduce_scatter_tensor``; ``*_single`` where torch has those names).
+
 NCCL refuses two ranks on one card; ``backend="gloo"`` lets several ranks
-share one card (gloo all-reduces CUDA tensors through the host).
+share one card.  Gloo takes CUDA tensors in all four collectives (checked
+on an H100 under torch 2.11.0+cu128, ``PERF.md``) and copies them through
+the host itself, so the mesh passes every tensor as it is, on either
+backend.
 """
 
 from __future__ import annotations
@@ -35,6 +43,28 @@ class Mesh:
     def all_reduce(self, tensor: torch.Tensor, op=dist.ReduceOp.SUM) -> None:
         dist.all_reduce(tensor, op=op)
 
+    def all_to_all(self, tensor: torch.Tensor) -> torch.Tensor:
+        """(P, ...) blocks, block q to rank q; returns (P, ...) blocks, block
+        q from rank q (the halo exchange)."""
+        out = torch.empty_like(tensor)
+        dist.all_to_all_single(out, tensor.contiguous())
+        return out
+
+    def all_gather(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Every rank's (k, ...) rows, in rank order: (P k, ...)."""
+        out = torch.empty((self.size * tensor.shape[0], *tensor.shape[1:]),
+                          dtype=tensor.dtype, device=tensor.device)
+        _all_gather(out, tensor.contiguous())
+        return out
+
+    def reduce_scatter(self, tensor: torch.Tensor) -> torch.Tensor:
+        """(P k, ...) rows summed over the ranks; returns this rank's k rows
+        of the sum."""
+        out = torch.empty((tensor.shape[0] // self.size, *tensor.shape[1:]),
+                          dtype=tensor.dtype, device=tensor.device)
+        _reduce_scatter(out, tensor.contiguous())
+        return out
+
     def broadcast_object(self, obj):
         """Rank 0's ``obj`` on every rank."""
         box = [obj]
@@ -53,6 +83,13 @@ class Mesh:
         a layered run) is the same even without a common ``setSeed``."""
         bits = rng_mod.host_rng().bit_generator
         bits.state = self.broadcast_object(bits.state)
+
+
+# torch 2.13 names the one-tensor gather and reduce-scatter all_gather_single
+# and reduce_scatter_single, and warns on the older names, which torch 2.11
+# has alone
+_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
 def init_distributed(

@@ -14,6 +14,9 @@ byte-compatible with the reference:
 
 from __future__ import annotations
 
+import ctypes
+import os
+
 import numpy as np
 
 from .csr import CSRGraph, from_edges
@@ -25,7 +28,24 @@ def read_edge_list(path: str, comment: str = "#", delimiter: str | None = None) 
     ``delimiter=None`` splits on any whitespace (the reference uses a single
     space, GraphIO.cpp:10; whitespace-splitting is a superset).  Lines with
     fewer than two integer tokens are skipped.
+
+    As in the JAX package, whitespace-delimited files with a one-character
+    comment go through the native parser (``csrc/labelprop.cpp``,
+    ``wembed_parse_edge_list``, built with g++ at first use): the Python
+    loop takes minutes at 100M edges (reference parser:
+    src/graphLib/src/graphIO/GraphIO.cpp:10-51, C++).  Another delimiter or
+    a longer comment takes the Python loop.  A failed build or an
+    unreadable file raises; nothing falls back.
     """
+    if delimiter is None and len(comment) == 1:
+        pairs = _read_pairs_native(path, comment)
+    else:
+        pairs = _read_pairs_python(path, comment, delimiter)
+    return from_edges(pairs)
+
+
+def _read_pairs_python(path: str, comment: str, delimiter: str | None) -> np.ndarray:
+    """(k, 2) int64 edge pairs, a line at a time."""
     pairs = []
     with open(path) as f:
         for line in f:
@@ -39,7 +59,34 @@ def read_edge_list(path: str, comment: str = "#", delimiter: str | None = None) 
                 pairs.append((int(tokens[0]), int(tokens[1])))
             except ValueError:
                 continue
-    return from_edges(np.asarray(pairs, dtype=np.int64).reshape(-1, 2))
+    return np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+
+
+def _configure_parser(lib: ctypes.CDLL) -> None:
+    lib.wembed_parse_edge_list.argtypes = [
+        ctypes.c_char_p, ctypes.c_char, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+    ]
+    lib.wembed_parse_edge_list.restype = ctypes.c_int64
+
+
+def _read_pairs_native(path: str, comment: str) -> np.ndarray:
+    """(k, 2) int64 edge pairs from the native parser, in one pass: every
+    parsed line takes at least 4 bytes ("a b\n"; the last line 3), so
+    size // 4 + 1 pairs bound the count."""
+    from ..kernels import _build
+
+    capacity = os.path.getsize(path) // 4 + 1
+    buf = np.empty((capacity, 2), dtype=np.int64)
+    lib = _build.load("labelprop", _configure_parser)
+    count = lib.wembed_parse_edge_list(
+        os.fsencode(path), comment.encode(), buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        capacity,
+    )
+    if count < 0:
+        raise OSError(f"the native edge-list parser cannot read {path!r}")
+    if count > capacity:
+        raise RuntimeError(f"{path!r}: {count} pairs overran the parser's bound of {capacity}")
+    return buf[:count].copy()
 
 
 def write_edge_list(path: str, g: CSRGraph) -> None:

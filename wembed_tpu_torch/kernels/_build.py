@@ -45,6 +45,7 @@ class BuildInfo:
 
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_configured: dict[str, set] = {}  # the configure functions run on each loaded library
 
 
 def _nvcc() -> str:
@@ -106,10 +107,14 @@ def build(name: str) -> BuildInfo:
 
 def load(name: str, configure: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     """The library of ``csrc/<name>``, built if needed and loaded once per
-    process; ``configure`` sets its functions' argtypes on first load."""
+    process; ``configure`` sets the argtypes of the functions its caller
+    uses, once per library (two modules may bind one library)."""
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name).path))
-        configure(lib)
         _loaded[name] = lib
+    done = _configured.setdefault(name, set())
+    if configure not in done:
+        configure(lib)
+        done.add(configure)
     return lib

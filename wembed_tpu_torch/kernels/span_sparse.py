@@ -37,7 +37,10 @@ queries.  The sort order, the rows and the windows do not change.
 One rank's share of the replicated multi-device step (``core/step.py:
 Share``) is a contiguous slice of the sweep's work items and a contiguous
 range of the directed, src-sorted edges; the structures build stays whole
-on every rank, as in the JAX package.
+on every rank, as in the JAX package.  A halo rank
+(``distributed/halo.py``) sweeps such a slice too (in resident mode the
+items of its range of query blocks, ``block_items``), and its index holds
+only its chunk of the correction edges.
 
 What the TPU layout needed and the port drops: the flattened, bucketed
 work-tile list and its scalar-prefetch tables (the CUDA kernel reads the
@@ -682,12 +685,21 @@ def build_span_structures(
 # -------------------------------------------------------- sweep and edges
 
 
+def block_items(idx: SpanIndex, b0: int, b1: int) -> tuple[int, int]:
+    """The slice [lo, hi) of the index's work-item table
+    (``span_sweep.work_items``) that holds the items of query blocks
+    [b0, b1): the table is block-major, so one binary search on its block
+    column finds it (a halo rank's share in resident mode)."""
+    lo, hi = np.searchsorted(work_items(idx.blk_t)[:, 0], [b0, b1])
+    return int(lo), int(hi)
+
+
 def _sweep(s: SpanStructures, idx: SpanIndex, opts, items: torch.Tensor | None = None, share=None):
     """The kernel's per-slot results back on vertices: (force (n, d),
     rep_loss, candidate count (i64), zero_count (n,) i32).  ``items`` is
     the work-item table of the windows ``s`` was built for (default: the
-    index's, copied to the device here); ``share`` sweeps its slice of
-    them."""
+    index's, copied to the device here), or a contiguous slice of it;
+    ``share`` sweeps its slice of them."""
     device = s.qrec.device
     t = idx.tensors(device)
     if items is None:
@@ -847,8 +859,10 @@ def span_repulsion_forces(
     items: torch.Tensor | None = None,
     in_index: torch.Tensor | None = None,
 ):
-    """Repulsion alone: the sweep and the O(E) neighbour correction, with
-    ``in_index`` as in ``span_fused_forces``.
+    """Repulsion alone: the sweep and the O(E) neighbour correction over
+    the index's directed edges (all of them, or a halo rank's chunk of
+    them), with ``in_index`` as in ``span_fused_forces``.  ``items`` may be
+    a slice of the work items.
 
     Returns (force (n, d), rep_loss, rep_count, overflow, zero_count (n,)
     i32).  The count uses each member's per-doubling-class radius, so it is
