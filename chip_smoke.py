@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each of which fails the run (non-zero exit) when it fails:
   1. a CUDA card is present; print torch/CUDA versions, the card's name and
-     power limit; start making girg100k (phase 8) in a subprocess;
+     power limit; start making girg100k d=2 (phase 8) and d=4 (phase 13b),
+     each in a subprocess;
   2. build the CUDA kernels from ``wembed_tpu_torch/csrc`` (one nvcc per
      source) and the layered path's host label propagation (g++), all
      started together; print the kernels' registers and spills, and fail
@@ -73,6 +74,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
  13. negative sampling on girg100k (10 negatives a vertex): finite state,
      every step's candidate count within [0.99 n k, n k], MAP and F1
      printed.
+ 13b. girg100k d=4 (the reference's default dimension; n and m checked
+     against ``baselines/reference_measured.json``) under both span
+     layouts: the cells sweep against its plain version at the positions
+     after 20 steps of a ``span_layout="cells"`` run (timed; capacity,
+     live and dead tiles), and the windows sweep at the same positions
+     (timed); then ``WEmbedEmbedder`` with each layout, windows then
+     cells, to convergence from seed 1: below 1000 iterations, one sweep
+     launch a step (the fast kernel), final overflow 0, finite state,
+     total loss within 1.15x and MAP at least 0.9x the C++ reference's;
+     MAP and F1, and at the converged positions the structures build,
+     sweep, edge pass and step by CUDA events (the sweep's share of the
+     step) and a profile of 20 steps; then a cells run of 2 x 60 steps
+     with a checkpoint between, bitwise equal to 120 straight steps.
 
 And the general kernels, the partial index and the replicated backend:
   3b. the general dense kernel (f32 at d = 16 and 33, f64 at d = 2 and 16)
@@ -126,8 +140,9 @@ and fails unless the two outputs are bitwise equal.  The main paths must
 launch the fast kernels only.  The line before the last is a JSON summary
 of the kernels (time, bound, launches on the main paths: flat, layered,
 profiled, resumed, the general kernels' runs, replicated, with a partial
-index, and on the halo backend: one rank, resident, layered, two ranks;
-the general kernels' times); the last line is ``{"ok":
+index, on the halo backend: one rank, resident, layered, two ranks, and
+girg100k d=4 in the cell layout, resumed, and in windows; the general
+kernels' times and both layouts' d=4 sweeps); the last line is ``{"ok":
 true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -148,6 +163,10 @@ GIRG10K = REPO / "assets" / "girg10k.edg"
 GIRG100K = REPO / "build" / "graphs" / "girg100k_d2.edg"
 GIRG100K_FLAGS = ["-n", "100000", "-d", "2", "-s", "1", "--avg-deg", "15", "--ple", "2.5"]
 GIRG100K_MD5 = "2da04136ab08cc3830049310680a0815"  # the JAX package's generator, same flags
+GIRG100K_D4 = REPO / "build" / "graphs" / "girg100k_d4.edg"  # the reference's default dimension
+GIRG100K_D4_FLAGS = ["-n", "100000", "-d", "4", "-s", "1", "--avg-deg", "15", "--ple", "2.5"]
+GIRG100K_D4_MD5 = "3c113cf38828864d4bf07e943d5bd850"  # the port's generator, these flags
+CELLS_RESUME = 60  # steps on each side of the cells checkpoint
 GIRG100K_LAYERS = (4, 22, 133, 713, 3699)  # its dense coarse layers (seed 1, default partitioner)
 REFERENCE = REPO / "baselines" / "reference_measured.json"
 KERNELS = ("fused_dense", "span_sweep")
@@ -639,49 +658,52 @@ def pinned_ranking(csr, coords, weights) -> dict:
     return row
 
 
-def start_girg100k():
-    """Make girg100k with the port's generator in a subprocess, unless the
-    cached file is already the right one.  Returns (process or None, t0)."""
-    if GIRG100K.exists() and hashlib.md5(GIRG100K.read_bytes()).hexdigest() == GIRG100K_MD5:
+def start_graph(path: Path, flags: list[str], md5: str | None):
+    """Make a graph with the port's generator in a subprocess, unless the
+    cached file is already the right one (any finished file when ``md5``
+    is None).  Returns (process or None, t0)."""
+    if path.exists() and (md5 is None or hashlib.md5(path.read_bytes()).hexdigest() == md5):
         return None, time.perf_counter()
-    GIRG100K.parent.mkdir(parents=True, exist_ok=True)
-    tmp = GIRG100K.with_name(GIRG100K.name + ".tmp")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + ".tmp")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "wembed_tpu_torch.cli.generate", "-o", str(tmp), *GIRG100K_FLAGS],
+        [sys.executable, "-m", "wembed_tpu_torch.cli.generate", "-o", str(tmp), *flags],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
     return proc, time.perf_counter()
 
 
-def finish_girg100k(proc, t0) -> float:
+def finish_graph(path: Path, proc, t0) -> float:
     """Wait for the generator; returns its wall seconds (0.0 when cached)."""
     if proc is None:
         return 0.0
     out, err = proc.communicate(timeout=600)
     seconds = time.perf_counter() - t0
-    check(proc.returncode == 0, f"generate exit {proc.returncode}: {err[-2000:]}")
-    print(f"generate girg100k: {out.strip()}, {seconds:.3f} s")
-    GIRG100K.with_name(GIRG100K.name + ".tmp").replace(GIRG100K)
+    check(proc.returncode == 0, f"generate {path.name} exit {proc.returncode}: {err[-2000:]}")
+    print(f"generate {path.name}: {out.strip()}, {seconds:.3f} s")
+    path.with_name(path.name + ".tmp").replace(path)
     return seconds
 
 
 def span_case(positions, inv_w, weights, colors, idx, opts, k=None):
-    """Inputs of the span sweep at the given CUDA tensors and windows, in
-    work items of at most ``k`` tiles (default: the port's)."""
+    """Inputs of the span sweep at the given CUDA tensors and windows (a
+    cell index: its capacities), in work items of at most ``k`` tiles
+    (default: the port's)."""
     import torch
 
-    from wembed_tpu_torch.kernels import span_sparse, span_sweep
+    from wembed_tpu_torch.kernels import span_sweep
 
-    s = span_sparse.build_span_structures(positions, inv_w, weights, colors, idx, opts)
+    s = idx.structures(positions, inv_w, weights, colors, opts)
     t = idx.tensors(positions.device)
     items = torch.as_tensor(
-        span_sweep.work_items(idx.blk_t, k or span_sweep.WORK_ITEM_TILES), device=positions.device
+        span_sweep.work_items(s.blk_t.cpu().numpy(), k or span_sweep.WORK_ITEM_TILES),
+        device=positions.device,
     )
     return dict(
         args=(s.qrec, s.qcol, s.srec, s.scol, s.blk_t, s.start_tile, t.tile_off),
         kw=dict(dim=idx.d, L=opts.edge_length, rep_scale=opts.repulsion_scale,
                 additive=opts.additive_weights, items=items),
-        n=idx.n, tiles=idx.w, items=int(items.shape[0]), overflow=int(s.overflow),
+        n=idx.n, tiles=idx.w, items=int(items.shape[0]), overflow=int(s.overflow), need=s.need,
     )
 
 
@@ -722,12 +744,11 @@ def synthetic_span_case(n, d, *, additive=False, bipartite=False, coincident=Fal
 
 
 def sized_span_case(tensors, idx, opts):
-    """``span_case`` with the windows grown to the needs of the positions
-    (positions, inverse weights, weights, colours)."""
-    from wembed_tpu_torch.kernels import span_sparse
-
+    """``span_case`` with the windows (or a cell index's capacities) grown
+    to the needs of the positions (positions, inverse weights, weights,
+    colours)."""
     for _ in range(6):
-        s = span_sparse.build_span_structures(*tensors, idx, opts)
+        s = idx.structures(*tensors, opts)
         grown = idx.grow_from_needs(s.need.cpu().numpy())
         if int(s.overflow) == 0 or grown is None:
             break
@@ -764,9 +785,11 @@ def compare_span(name: str, case: dict, timed: bool) -> dict:
     if timed:
         row["ms"] = cuda_ms(lambda: span_sweep.span_sweep(*args, **kw), 20)
         row["plain_ms"] = cuda_ms(lambda: span_sweep.span_sweep_reference(*args, **kw), 3)
-        # every (slot, member) pair of the work tiles, plus the candidates' rare path
+        # every (slot, member) pair of the work tiles (a cell case: of the
+        # kept members), plus the candidates' rare path
         d = kw["dim"]
-        flop = case["tiles"] * span_sweep.Q * span_sweep.ST * (3 * d + 1) + int(c_p.sum()) * RARE_FLOP
+        pairs = case.get("pairs", case["tiles"] * span_sweep.Q * span_sweep.ST)
+        flop = pairs * (3 * d + 1) + int(c_p.sum()) * RARE_FLOP
         row["bound_ms"], row["bound_by"] = bound(
             flop, nbytes(*args, kw["items"], *out), f64=dtype == torch.float64
         )
@@ -804,7 +827,7 @@ def span_breakdown(impl) -> dict:
         impl._state = impl._step(impl._state)
         impl._state.pos_change.item()  # the loop's one synchronisation a step
     parts["step_wall_ms"] = (time.perf_counter() - t0) * 1000.0 / 20
-    block_tiles = impl._index.blk_t.sum(axis=1)
+    block_tiles = impl._blk_t.cpu().numpy().sum(axis=1)  # windows, or a cell index's capacities
     # the sweep's CTAs are query blocks: the longest one bounds the call
     t = impl._index.tensors(st.positions.device)
     parts["item_sizes"] = span_item_sizes(
@@ -892,15 +915,19 @@ def read_launches() -> dict:
     return {name: wrapper.launches for name, wrapper in counters().items()}
 
 
-def continue_run(impl) -> tuple[float, dict]:
-    """``calculate_embedding()`` with every launch count set to 0 just
-    before and read just after: (wall seconds, launches)."""
+def continue_run(impl, cap: int | None = None) -> tuple[float, dict]:
+    """``calculate_embedding()`` (of a flat embedder: to ``cap`` iterations
+    when given) with every launch count set to 0 just before and read just
+    after: (wall seconds, launches)."""
     import torch
 
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    impl.calculate_embedding()
+    if cap is None:
+        impl.calculate_embedding()
+    else:
+        impl.calculate_embedding(max_iterations=cap)
     torch.cuda.synchronize()
     return time.perf_counter() - t0, read_launches()
 
@@ -1221,6 +1248,167 @@ def f64_card_against_cpu(steps: int = 3) -> list[dict]:
         check(card.state.positions.dtype == torch.float64 and card.device.type == "cuda", "f64 run not on the card")
         rows.append(row)
     return rows
+
+
+def presized_case(tensors, idx, opts):
+    """``sized_span_case`` after the embedder's presize at these positions:
+    every window (or capacity) resized to its need first."""
+    s = idx.structures(*tensors, opts)
+    return sized_span_case(tensors, idx.resize_to_needs(s.need.cpu().numpy()) or idx, opts)
+
+
+def cells_sweep_case(impl) -> dict:
+    """``presized_case`` of a cell embedder at its current positions, with
+    the capacities' live and dead tiles: a block's kept members fill
+    ceil(kept / 256) live tiles, the rest of its capacity holds sentinel
+    members, which the sweep visits all the same.  The bound counts the
+    pairs of the kept members (256 query slots each)."""
+    import numpy as np
+
+    from wembed_tpu_torch.kernels import span_sweep
+
+    st = impl.state
+    case = presized_case((st.positions, impl._inv_w, impl._weights, impl._dg.colors), impl._index, impl.opts)
+    caps = case["args"][4][:, 0].cpu().numpy().astype(np.int64)
+    kept = np.minimum(case["need"].cpu().numpy(), caps * span_sweep.ST)
+    live = int((-(-kept // span_sweep.ST)).sum())
+    layout = dict(capacity_tiles=case["tiles"], live_tiles=live, dead_share=1.0 - live / case["tiles"],
+                  kept_members=int(kept.sum()), member_slot_share=float(kept.sum()) / (case["tiles"] * span_sweep.ST),
+                  blocks=int(caps.shape[0]))
+    print("cells_layout " + json.dumps(layout))
+    return dict(case, pairs=int(kept.sum()) * span_sweep.Q, layout=layout)
+
+
+def layout_profile(name: str, impl) -> dict:
+    """A converged span embedder's step by CUDA events: the structures
+    build, the sweep, the edge pass (fused forces minus the sweep) and 20
+    whole steps of the loop (each ending in its one synchronisation), the
+    sweep's share of the step; then ``profile_steps`` over 20 more."""
+    import torch
+
+    parts = span_breakdown(impl)
+
+    def one_step():
+        impl._state = impl._step(impl._state)
+        impl._state.pos_change.item()
+
+    parts["step_ms"] = cuda_ms(one_step, 20)
+    parts["sweep_share"] = parts["sweep_ms"] / parts["step_ms"]
+    parts["profile"] = profile_steps(impl)
+    torch.cuda.synchronize()
+    print(f"d4_profile_{name} " + json.dumps(parts))
+    return parts
+
+
+def cells_resume(graph, tmp: Path) -> dict:
+    """A cells run of CELLS_RESUME steps, a checkpoint, and a fresh cell
+    embedder from another seed that loads it and runs CELLS_RESUME more,
+    against 2 x CELLS_RESUME straight steps: every state tensor, the
+    capacities and the growth events equal, bit for bit."""
+    import numpy as np
+
+    from wembed_tpu_torch import api
+    from wembed_tpu_torch.core import EmbedderOptions, WEmbedEmbedder
+    from wembed_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
+
+    opts = EmbedderOptions(embedding_dimension=4, span_layout="cells")
+
+    def make():
+        return WEmbedEmbedder(graph.csr, opts, verbose=False)
+
+    api.setSeed(1)
+    straight = make()
+    straight.calculate_embedding(max_iterations=2 * CELLS_RESUME)
+    api.setSeed(1)
+    first = make()
+    first.calculate_embedding(max_iterations=CELLS_RESUME)
+    path = str(tmp / "cells.npz")
+    save_checkpoint(path, first)
+    open_segment_growth = first._segment_growth  # growths since iteration 50, carried by the file
+    del first
+    api.setSeed(2)
+    resumed = make()
+    load_checkpoint(path, resumed)
+    wall, launches = continue_run(resumed, 2 * CELLS_RESUME)
+    row = dict(
+        steps=[CELLS_RESUME, CELLS_RESUME], iterations=[straight.iteration, resumed.iteration],
+        launches_after_checkpoint=launches["span_sweep"],
+        growth_events=[straight.growth_events, resumed.growth_events],
+        open_segment_growth_at_checkpoint=open_segment_growth,
+        capacity_tiles=[straight._index.w, resumed._index.w],
+        bitwise_equal=same_state(straight.state, resumed.state)
+        and bool(np.array_equal(straight._index.cap_t, resumed._index.cap_t)),
+        continue_wall_s=wall,
+    )
+    print("resume_cells_girg100k_d4 " + json.dumps(row))
+    check(resumed.span_layout == "cells", "cells resume: not the cell layout")
+    check(row["bitwise_equal"], "cells resume: 2 x 60 steps differ from 120 straight steps")
+    check(straight.iteration == resumed.iteration == 2 * CELLS_RESUME, f"cells resume: iterations {row['iterations']}")
+    check(launches["span_sweep"] == CELLS_RESUME, f"cells resume: {launches} after the checkpoint")
+    check(straight.growth_events == resumed.growth_events, "cells resume: growth events differ")
+    return row
+
+
+def girg100k_d4(generators: dict, reference: dict, tmp: Path) -> dict:
+    """Phase 13b: girg100k d=4 (the reference's default dimension) under
+    both span layouts.  The cells sweep against its plain version at the
+    positions after 20 steps of a cells run, and the windows sweep at the
+    same positions, each layout presized there; then each layout to convergence from seed 1 through
+    ``WEmbedEmbedder`` (the loss and MAP limits, final overflow 0, one
+    sweep launch a step, the fast kernel only), scored, and profiled at the
+    converged positions; then the cells resume."""
+    from wembed_tpu_torch import api
+    from wembed_tpu_torch.core import EmbedderOptions, WEmbedEmbedder
+    from wembed_tpu_torch.kernels.span_sparse import SpanIndex
+
+    t0 = time.perf_counter()
+    seconds = finish_graph(GIRG100K_D4, *generators[GIRG100K_D4])
+    md5 = hashlib.md5(GIRG100K_D4.read_bytes()).hexdigest()
+    graph = api.graphFromEdgeListFile(str(GIRG100K_D4))
+    n, m = graph.getNumVertices(), graph.getNumEdges()
+    print("girg100k_d4 " + json.dumps(dict(md5=md5, n=n, m=m, generate_s=seconds)))
+    check((n, m) == (reference["n"], reference["m"]), f"girg100k_d4 n={n} m={m}")
+    check(GIRG100K_D4_MD5 is None or md5 == GIRG100K_D4_MD5, f"girg100k_d4 md5 {md5}")
+    ref_total = reference["att_loss"] + reference["rep_loss"]
+    map_floor = MAP_FACTOR * reference["map"]
+    layouts = dict(windows=EmbedderOptions(embedding_dimension=4),
+                   cells=EmbedderOptions(embedding_dimension=4, span_layout="cells"))
+
+    api.setSeed(1)
+    impl = WEmbedEmbedder(graph.csr, layouts["cells"], verbose=False)
+    check(impl.span_layout == "cells", f"span_layout='cells' built the {impl.span_layout} layout")
+    for _ in range(COMPARE_STEPS):
+        impl.calculate_step()
+    case = cells_sweep_case(impl)
+    sweeps = dict(cells=compare_span("girg100k_d4_cells_step20", case, timed=True))
+    sweeps["cells"]["layout"] = case["layout"]
+    st = impl.state
+    windows = SpanIndex.build(impl.get_weights(), layouts["windows"], graph.csr.edge_src, graph.csr.col_idx)
+    sweeps["windows"] = compare_span("girg100k_d4_windows_step20", presized_case(
+        (st.positions, impl._inv_w, impl._weights, impl._dg.colors), windows, layouts["windows"]), timed=True)
+    del impl, st, case
+
+    runs = {}
+    for name, opts in layouts.items():
+        api.setSeed(1)
+        impl = WEmbedEmbedder(graph.csr, opts, verbose=False)
+        check(impl.span_layout == name, f"{name}: built the {impl.span_layout} layout")
+        row = converge(f"girg100k_d4_{name}", impl, graph, "span_sweep", ref_total=ref_total, map_floor=map_floor)
+        check(row["launches_general"]["span_sweep"] == 0, f"{name}: the general sweep ran")
+        row.update(final_work_tiles=impl._index.w, shrink_events=impl._shrink_events,
+                   quality=evaluate_embedding(graph.csr, impl.get_coordinates(), impl.get_weights()))
+        print(f"quality_girg100k_d4_{name} " + json.dumps(row["quality"]))
+        row["profile"] = layout_profile(name, impl)
+        runs[name] = row
+        del impl
+    resume = cells_resume(graph, tmp)
+    summary = dict(
+        seconds=time.perf_counter() - t0, reference_total_loss=ref_total, reference_iterations=reference["iters_to_converge"],
+        **{f"{name}_{k}": runs[name][k] for name in layouts for k in ("iterations", "wall_s", "step_ms", "total_loss", "MAP")},
+        **{f"{name}_sweep_share": runs[name]["profile"]["sweep_share"] for name in layouts},
+    )
+    print("phase13b " + json.dumps(summary))
+    return dict(sweeps=sweeps, runs=runs, resume=resume)
 
 
 def partial_index_run(graph, tmp: Path) -> dict:
@@ -1788,19 +1976,21 @@ def main() -> int:
     )
     print(smi.stdout.strip())
     kind = torch.cuda.get_device_name(0)
-    gen_proc, gen_t0 = start_girg100k()
+    generators = {path: start_graph(path, flags, md5) for path, flags, md5 in (
+        (GIRG100K, GIRG100K_FLAGS, GIRG100K_MD5), (GIRG100K_D4, GIRG100K_D4_FLAGS, GIRG100K_D4_MD5))}
     try:
-        return run_phases(kind, gen_proc, gen_t0)
+        return run_phases(kind, generators)
     finally:
-        if gen_proc is not None and gen_proc.poll() is None:
-            gen_proc.kill()
-            gen_proc.wait()
+        for proc, _ in generators.values():
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
         mesh = sys.modules.get("wembed_tpu_torch.distributed.mesh")
         if mesh is not None:
             mesh.shutdown()  # the one-rank NCCL group of the replicated phases
 
 
-def run_phases(kind, gen_proc, gen_t0) -> int:
+def run_phases(kind, generators: dict) -> int:
     import numpy as np
     import torch
 
@@ -1996,7 +2186,7 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
 
     # ---- phase 8: girg100k
     graph10k = graph
-    gen_seconds = finish_girg100k(gen_proc, gen_t0)
+    gen_seconds = finish_graph(GIRG100K, *generators[GIRG100K])
     md5 = hashlib.md5(GIRG100K.read_bytes()).hexdigest()
     reference = references["girg100k_d2"]
     graph = api.graphFromEdgeListFile(str(GIRG100K))
@@ -2107,6 +2297,10 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
     # ---- phase 13: negative sampling, girg100k
     sampled_run(graph)
 
+    # ---- phase 13b: girg100k d=4 under both span layouts
+    with tempfile.TemporaryDirectory() as tmp:
+        d4 = girg100k_d4(generators, references["girg100k_d4"], Path(tmp))
+
     # ---- phase 14: girg100k in f64, with a partial index, replicated on
     # one rank (flat and layered), and on two ranks sharing the card
     api.setSeed(1)
@@ -2197,6 +2391,7 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
             "launches_halo_resident": halo_res["launches"]["fused_dense"],
             "launches_halo_layered": halo_layers["launches"]["fused_dense"],
             "launches_halo_two_ranks": [r["fused_dense"] for r in two_ranks["halo_girg10k"]["launches"]],
+            "launches_cells": d4["runs"]["cells"]["launches"]["fused_dense"],
             "general": {k: general_timing(v) for k, v in general_dense.items()},
             "max_abs_err": girg["max_abs_err"],
             "ms": girg["ms"],
@@ -2224,7 +2419,11 @@ def run_phases(kind, gen_proc, gen_t0) -> int:
             "launches_halo_resident": halo_res["launches"]["span_sweep"],
             "launches_halo_layered": halo_layers["launches"]["span_sweep"],
             "launches_halo_two_ranks": [r["span_sweep"] for r in two_ranks["halo_girg100k"]["launches"]],
+            "launches_cells": d4["runs"]["cells"]["launches"]["span_sweep"],
+            "launches_windows_d4": d4["runs"]["windows"]["launches"]["span_sweep"],
+            "launches_resumed_cells": d4["resume"]["launches_after_checkpoint"],
             "general": {k: general_timing(v) for k, v in general_span.items()},
+            "girg100k_d4": {k: general_timing(v) for k, v in d4["sweeps"].items()},
             "max_abs_err": girg_span["max_abs_err"],
             "ms": girg_span["ms"],
             "plain_ms": girg_span["plain_ms"],

@@ -1,5 +1,6 @@
 """The port stands alone: it imports no jax, never falls back from CUDA to
-the CPU, and raises on the path it does not run yet (the cell layout)."""
+the CPU, and runs every option the JAX package runs (the cell layout was
+the last to come)."""
 
 import os
 import subprocess
@@ -29,7 +30,8 @@ def test_no_module_imports_jax():
         "assert len(names) > 10, names\n"
         "for name in ('multilevel.layered', 'multilevel.label_prop', 'eval.device', 'cli.evaluate',\n"
         "             'core.checkpoint', 'draw.svg', 'draw.ipe', 'draw.animate',\n"
-        "             'distributed.mesh', 'distributed.step', 'distributed.launch', 'distributed.halo'):\n"
+        "             'distributed.mesh', 'distributed.step', 'distributed.launch', 'distributed.halo',\n"
+        "             'kernels.span_compact'):\n"
         "    assert 'wembed_tpu_torch.' + name in names, name\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'wembed_tpu.')) or m == 'wembed_tpu')\n"
         "assert not bad, bad\n"
@@ -69,8 +71,12 @@ def test_default_device_raises_without_cuda():
     ],
 )
 def test_unported_options_raise(opts):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 15"):
-        WEmbedEmbedder(_small_graph(), opts, verbose=False, device="cpu")
+    """These options raised while the cell layout was unported; both now
+    build an embedder on the span path in the cell layout, which steps."""
+    emb = WEmbedEmbedder(_small_graph(), opts, verbose=False, device="cpu")
+    assert emb.path == "span" and emb.span_layout == "cells"
+    emb.calculate_step()
+    assert int(emb.state.overflow) == 0 and np.isfinite(emb.get_coordinates()).all()
 
 
 @pytest.mark.parametrize("surface", ["api", "cli"])

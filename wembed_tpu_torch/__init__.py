@@ -12,9 +12,9 @@ The port runs the flat embedding — the dense path (n <= dense_threshold),
 the span path above it, and negative sampling — the layered (multilevel)
 embedding over it (``multilevel``), the profiled step, checkpoints
 (``core/checkpoint.py``), the evaluation metrics (``eval``), drawing
-(``draw``), a partial index, and the replicated and halo multi-device
-backends (``distributed``).  The cell layout raises
-``NotImplementedError`` naming its ROADMAP item.
+(``draw``), a partial index, both span layouts (windows, and cells with
+``span_layout="cells"``), and the replicated and halo multi-device
+backends (``distributed``): everything the JAX package does.
 """
 
 from . import core, graphs, utils

@@ -19,15 +19,16 @@ What the port's file holds beyond the JAX package's keys:
   * ``host_rng``: the host seed stream's state, restored on load, so that
     what is drawn after the resume (the expansion and the generators of
     the layers after a layered checkpoint's) is what the saved run draws.
-  * On the span path, the windows (``SpanIndex.blk_t``) and the growth
+  * On the span path, the windows (``SpanIndex.blk_t``) or, in the cell
+    layout, the block capacities (``CellIndex.cap_t``), and the growth
     protocol's counters.  The JAX package re-presizes windows from the
     restored positions: in its sweep, wider windows only add exact zeros.
     In the port they would not: the sweep's work items (at most
     ``WORK_ITEM_TILES`` tiles, ``kernels/span_sweep.py:work_items``) group
     each slot's partial sums by item, so other windows give other f32 sums.
-    So the saved windows are reinstalled whenever the skeleton built from
+    So the saved sizes are reinstalled whenever the skeleton built from
     the saved weights has their shape, and only a file without them (a JAX
-    checkpoint) presizes.
+    checkpoint, or one of the other layout) presizes.
 
 ``key`` holds the data of a JAX PRNG key derived from the generator's seed
 and ``span_scale`` is 1, so the JAX package's ``load_checkpoint`` reads the
@@ -53,6 +54,7 @@ import numpy as np
 import torch
 
 from .. import convert
+from ..kernels.span_compact import CellIndex
 from ..multilevel.hierarchy import GraphHierarchy
 from ..utils import rng as rng_mod
 
@@ -82,13 +84,23 @@ def _flat_arrays(embedder) -> dict:
         host_rng=np.asarray(json.dumps(rng_mod.host_rng().bit_generator.state)),
     )
     if embedder._index is not None:
+        key, sizes, _ = _sizes(embedder._index)
         arrays.update(
-            blk_t=embedder._index.blk_t,
+            {key: sizes},
             growth_events=np.asarray(embedder._growth_events),
             shrink_events=np.asarray(embedder._shrink_events),
             spurious_resumes=np.asarray(embedder._spurious_resumes),
+            segment_growth=np.asarray(embedder._segment_growth),
         )
     return arrays
+
+
+def _sizes(index):
+    """(the file's key, the array, the resize) of a span index's sizes: a
+    cell index's capacities ``cap_t`` or the windows ``blk_t``."""
+    if isinstance(index, CellIndex):
+        return "cap_t", index.cap_t, index._with_caps
+    return "blk_t", index.blk_t, index._with_blk_t
 
 
 def save_checkpoint(path: str, embedder) -> None:
@@ -128,12 +140,14 @@ def _restore_flat(arrays: dict, embedder) -> None:
     embedder.load_host_state(state)
     if embedder._index is None:
         return
-    saved = arrays.get("blk_t")
-    if saved is not None and saved.shape == embedder._index.blk_t.shape:
-        embedder._swap_index(embedder._index._with_blk_t(saved))
+    key, sizes, resized = _sizes(embedder._index)
+    saved = arrays.get(key)
+    if saved is not None and saved.shape == sizes.shape:
+        embedder._swap_index(resized(saved))
         embedder._growth_events = int(arrays["growth_events"])
         embedder._shrink_events = int(arrays["shrink_events"])
         embedder._spurious_resumes = int(arrays["spurious_resumes"])
+        embedder._segment_growth = int(arrays.get("segment_growth", 0))
     else:
         embedder._presize_spans()
 

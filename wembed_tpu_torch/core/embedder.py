@@ -6,8 +6,12 @@ src/embeddingLib/include/embedder/EmbedderInterface.hpp:15-158):
 ``calculate_step`` runs one iteration, ``calculate_embedding`` runs the
 loop to convergence.  Graphs up to ``dense_threshold`` vertices take the
 dense path (the fused all-pairs kernel); larger ones the span path, with
-its window growth protocol (``core/span_driver.py``); negative sampling
-(``num_negative_samples >= 0``) takes the sampled path at any size.
+its window growth protocol (``core/span_driver.py``), in the windowed
+layout (``kernels/span_sparse.py:SpanIndex``) or with
+``span_layout="cells"`` in the cell layout
+(``kernels/span_compact.py:CellIndex``; ``_span_layout``); negative
+sampling (``num_negative_samples >= 0``) takes the sampled path at any
+size.
 
 ``profile`` (also when set after construction) splits every step into the
 reference's timed phases (``step.profiled_step``); ``opts.dump_weights``
@@ -30,7 +34,8 @@ from ..utils.timer import Timer, TimingResult
 from . import forces
 from . import step as step_mod
 from . import weights as weights_mod
-from ..kernels.span_sparse import SpanIndex, build_span_structures
+from ..kernels.span_compact import CellIndex
+from ..kernels.span_sparse import SpanIndex
 from .options import EmbedderOptions
 from .span_driver import SpanGrowthMixin
 from .state import DeviceGraph, EmbedState, init_state, random_positions
@@ -101,8 +106,9 @@ class WEmbedEmbedder(SpanGrowthMixin):
         self._dg = DeviceGraph.build(graph, self.device)
         # the dense path's (n, n) bit adjacency; the other paths never build it
         self._adj = forces.build_dense_adjacency(self._dg) if self._path == "dense" else None
-        # the span path's windows and the sweep's work items (``_swap_index``)
-        self._index: SpanIndex | None = None
+        # the span path's index, its windows or capacities on the device and
+        # the sweep's work items (``_swap_index``)
+        self._index: SpanIndex | CellIndex | None = None
         self._blk_t = self._items = None
         self._growth_events = 0
         self._shrink_events = 0
@@ -138,7 +144,13 @@ class WEmbedEmbedder(SpanGrowthMixin):
         if self._span:
             # the weight groups, hence the whole skeleton, follow the weights
             self._growth_events = 0
-            self._swap_index(SpanIndex.build(w, self.opts, *self._span_edges()))
+            index_cls = CellIndex if self._span_layout() == "cells" else SpanIndex
+            self._swap_index(index_cls.build(w, self.opts, *self._span_edges()))
+
+    def _span_layout(self) -> str:
+        """The span layout, ``"cells"`` or ``"windows"``: on one device the
+        options' choice (``EmbedderOptions.resolve_span_layout``)."""
+        return self.opts.resolve_span_layout()
 
     # the rows of the state tensors this embedder holds: all of them here;
     # a halo rank (``distributed/halo.py``) holds its vertex range
@@ -155,18 +167,19 @@ class WEmbedEmbedder(SpanGrowthMixin):
         return self.graph.edge_src, self.graph.col_idx
 
     # span growth protocol: SpanGrowthMixin (core/span_driver.py)
-    def _swap_index(self, index: SpanIndex) -> None:
-        """Install resized windows: the skeleton's device tables are shared,
-        only the (NB, R) window widths and the sweep's work items move to
-        the device, once per window change."""
+    def _swap_index(self, index: SpanIndex | CellIndex) -> None:
+        """Install resized windows or capacities: the skeleton's device
+        tables are shared, only the window widths ((NB, R), or the (NB, 1)
+        capacities of a cell index) and the sweep's work items move to the
+        device, once per change."""
         self._index = index
         self._blk_t = index.blk_t_tensor(self.device)
         self._items = index.work_items(self.device)
 
     def _span_structures(self):
-        return build_span_structures(
+        return self._index.structures(
             self._all_rows(self._state.positions), self._inv_w, self._weights, self._dg.colors,
-            self._index, self.opts, self._blk_t,
+            self.opts, self._blk_t,
         )
 
     def _step(self, state: EmbedState) -> EmbedState:
@@ -371,6 +384,13 @@ class WEmbedEmbedder(SpanGrowthMixin):
         ``dense_threshold`` (or under ``RepulsionMode.BUCKET``), and
         ``"dense"`` below."""
         return self._path
+
+    @property
+    def span_layout(self) -> str | None:
+        """``"windows"`` or ``"cells"`` on the span path, else None."""
+        if self._index is None:
+            return None
+        return "cells" if isinstance(self._index, CellIndex) else "windows"
 
     @property
     def growth_events(self) -> int:

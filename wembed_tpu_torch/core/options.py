@@ -13,11 +13,10 @@ kernel from the device of the tensors.
 ``PartitionerOptions`` are the multilevel coarsening knobs, with the
 reference's defaults.
 
-The port runs the dense path (n <= dense_threshold), the windowed span
-path above it (with a partial index, ``index_size < 1``, as a per-step
-member sample), and negative sampling (``num_negative_samples >= 0``) at
-any size.  The cell layout raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+The port runs the dense path (n <= dense_threshold), the span path above
+it in either layout (``resolve_span_layout``; with a partial index,
+``index_size < 1``, as a per-step member sample of the windowed layout),
+and negative sampling (``num_negative_samples >= 0``) at any size.
 """
 
 from __future__ import annotations
@@ -86,7 +85,10 @@ class EmbedderOptions:
     dense_threshold: int = 16384  # AUTO switches to BUCKET above this
     window_capacity: int = 48  # base candidate window of the initial span sizing
     # "auto" and "windows": per-(query block, target row) tile windows on the
-    # second principal axis; "cells" (three-level binning) is not ported
+    # second principal axis (``kernels/span_sparse.py``); "cells": rows and
+    # cells on the first two axes, windows on the third and each block's
+    # members compacted (``kernels/span_compact.py``), where the JAX
+    # package takes it (``resolve_span_layout``)
     span_layout: str = "auto"
     # the embedding loop pauses every this many iterations so that
     # over-provisioned span windows can shrink; 0 disables the pauses
@@ -110,21 +112,35 @@ class EmbedderOptions:
     def resolve_path(self, n: int) -> str:
         """The step an ``n``-vertex graph takes: ``"sampled"`` with negative
         sampling on, whatever the mode (``wembed_tpu/core/embedder.py:142``,
-        ``step.py:266,395``), else ``"dense"`` or ``"span"`` by the mode;
-        raise for what the port does not run yet."""
+        ``step.py:266,395``), else ``"dense"`` or ``"span"`` by the mode."""
         if self.num_negative_samples >= 0:
             return "sampled"
         mode = self.resolve_repulsion_mode(n)
         if mode is RepulsionMode.BUCKET:
-            if self.span_layout == "cells":
-                raise NotImplementedError(
-                    'the cell span layout (span_layout="cells") is not ported yet: '
-                    "ROADMAP.md, Queue 1, item 15"
-                )
-            if self.span_layout not in ("auto", "windows"):
-                raise ValueError(f"unknown span_layout {self.span_layout!r}")
+            self.resolve_span_layout()
             return "span"
         return "dense"
+
+    def resolve_span_layout(self) -> str:
+        """The span path's layout on one device, ``"cells"`` or
+        ``"windows"``, chosen where the JAX package chooses its index
+        (``wembed_tpu/core/embedder.py:141-158``, ``core/step.py:71-93``):
+        the cell index only with ``span_layout="cells"`` on the fused span
+        kernel's path, which is f32 with a whole index (``index_size >=
+        1``) and no negative sampling.  Elsewhere the JAX package takes its
+        jnp ``BucketIndex``, whose counterpart here is the windowed layout:
+        f64, a partial index, and ``"auto"`` or ``"windows"``.  The
+        multi-device embedders keep windows whatever this says
+        (``distributed/step.py``)."""
+        if self.span_layout not in ("auto", "windows", "cells"):
+            raise ValueError(f"unknown span_layout {self.span_layout!r}")
+        cells = (
+            self.span_layout == "cells"
+            and self.dtype == "float32"
+            and self.index_size >= 1.0
+            and self.num_negative_samples < 0
+        )
+        return "cells" if cells else "windows"
 
 
 @dataclass(frozen=True)

@@ -16,7 +16,14 @@ them covering:
     (``grow_all``).  ``_MAX_GROWTH_EVENTS`` stops a runaway.
   * SHRINK: the loop also pauses at every multiple of
     ``span_resize_interval`` iterations; after a segment without growth,
-    over-provisioned windows shrink to their needs.
+    over-provisioned windows shrink to their needs.  The growth count of
+    the open segment lives on the embedder (and in its checkpoints), so a
+    run cut into calls, or resumed, decides each shrink as one call would.
+
+The index is a ``SpanIndex`` (windows, needs (NB, R) members) or a
+``CellIndex`` (the cell layout, needs (NB,) members a block): each builds
+its own structures (``index.structures``) and sizes itself from its own
+needs with the same rules.
 
 Needs always come from the structures build on the embedder's device (the
 JAX package's device-measured branch), for presize too: the same
@@ -40,10 +47,12 @@ _MAX_STALE_RESUMES = 3
 
 class SpanGrowthMixin:
     _spurious_resumes = 0
+    _segment_growth = 0  # growth events since the last segment boundary
 
     def _measure_needs(self) -> tuple[np.ndarray, int]:
-        """(NB, R) window needs and the overflow of the current windows, at
-        the current positions, from the device build."""
+        """The index's needs ((NB, R) window members, or (NB,) block members
+        of a cell index) and the overflow of its current sizes, at the
+        current positions, from the device build."""
         s = self._span_structures()
         return s.need.cpu().numpy().astype(np.int64), int(s.overflow)
 
@@ -108,7 +117,6 @@ class SpanGrowthMixin:
         truncation."""
         stop_on_overflow = True
         interval = int(self.opts.span_resize_interval or 0)
-        seg_growth = 0  # growth events since the last segment boundary
         while True:
             it_now = self._state.iteration
             # boundaries at global multiples of the interval, so that short
@@ -124,12 +132,12 @@ class SpanGrowthMixin:
                     break  # converged, no truncation
                 # shrink only after a growth-free segment: while needs still
                 # rise, trimming to the current need starves windows again
-                if seg_growth == 0:
+                if self._segment_growth == 0:
                     self._maybe_shrink_spans()
-                seg_growth = 0
+                self._segment_growth = 0
                 continue
             if self._grow_spans():
-                seg_growth += 1
+                self._segment_growth += 1
                 self._announce_growth(overflow)
             else:
                 if not stop_on_overflow:

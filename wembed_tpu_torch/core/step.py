@@ -39,12 +39,8 @@ import torch
 
 from . import forces
 from ..kernels.fused_dense import fused_dense_forces
-from ..kernels.span_sparse import (
-    SpanIndex,
-    build_span_structures,
-    span_fused_forces,
-    span_repulsion_forces,
-)
+from ..kernels.span_compact import CellIndex
+from ..kernels.span_sparse import SpanIndex, span_fused_forces, span_repulsion_forces
 from .optim import AdamParams, adam_update, simple_update
 from .options import EmbedderOptions, OptimizerType
 from .state import DeviceGraph, EmbedState
@@ -180,7 +176,7 @@ def span_step(
     weights: torch.Tensor,
     inv_w: torch.Tensor,
     dg: DeviceGraph,
-    index: SpanIndex,
+    index: SpanIndex | CellIndex,
     blk_t: torch.Tensor,
     items: torch.Tensor,
     opts: EmbedderOptions,
@@ -188,9 +184,9 @@ def span_step(
 ) -> EmbedState:
     """One iteration of the span path (the ``fused_span`` branch of
     ``wembed_tpu/core/step.py:step``): structures, sweep kernel and the
-    merged attraction/correction edge pass, with the windows ``blk_t`` and
-    their work items ``items``; under a partial index, with this step's
-    member sample, drawn first."""
+    merged attraction/correction edge pass, with the windows ``blk_t`` (a
+    cell index: its (NB, 1) capacities) and their work items ``items``;
+    under a partial index, with this step's member sample, drawn first."""
     in_index = index.draw_members(state.generator)
     force, att_loss, rep_loss, rep_count, overflow, zero_count = span_fused_forces(
         state.positions, inv_w, weights, dg.colors, index, opts, state.generator,
@@ -288,7 +284,7 @@ def profiled_step(
     opts: EmbedderOptions,
     timer,
     adj: torch.Tensor | None = None,
-    index: SpanIndex | None = None,
+    index: SpanIndex | CellIndex | None = None,
     blk_t: torch.Tensor | None = None,
     items: torch.Tensor | None = None,
 ) -> EmbedState:
@@ -301,8 +297,10 @@ def profiled_step(
     after every phase instead).
 
     Attraction is ``forces.attraction_forces`` on every path.  Repulsion:
-      * span: the structures build is ``index``; ``span_repulsion_forces``
-        over them launches the sweep kernel;
+      * span: the structures build is ``index`` (either layout's:
+        ``build_span_structures`` or the cell layout's
+        ``build_cell_structures``); ``span_repulsion_forces`` over them
+        launches the sweep kernel and runs the neighbour correction;
       * dense: the JAX package runs its unfused jnp repulsion here, since
         the fused Pallas kernel cannot be split.  The port runs the fused
         CUDA kernel itself with the attraction scale at 0: its repulsion
@@ -324,9 +322,7 @@ def profiled_step(
     structures = in_index = None
     if path == "span":
         in_index = index.draw_members(state.generator)
-        structures = build_span_structures(
-            pos, inv_w, weights, dg.colors, index, opts, blk_t, in_index
-        )
+        structures = index.structures(pos, inv_w, weights, dg.colors, opts, blk_t, in_index)
         clock.mark("index")
     force_att, att_loss = forces.attraction_forces(pos, inv_w, dg, opts, state.generator)
     clock.mark("attracting_forces")

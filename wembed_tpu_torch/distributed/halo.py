@@ -212,7 +212,9 @@ class HaloEmbedder(MultiChipEmbedder):
     ``iteration``, ``host_state``, ``plan``, ``path``, ``growth_events``,
     ``final_overflow``, checkpoints).  ``state`` is this rank's; assigning a
     whole (n-row) state, as a checkpoint restore does, keeps this rank's
-    rows of it."""
+    rows of it.  The span path is the windowed layout, as in the JAX
+    halo step (``wembed_tpu/distributed/halo.py:200-220``): ``_span_layout``
+    is ``MultiChipEmbedder``'s."""
 
     def __init__(
         self,

@@ -30,6 +30,9 @@ Where torch differs from the JAX package:
     zeroes it off device 0 and psums it;
   * ``profile=True`` runs the normal step, as the JAX package's layer
     factory documents (``wembed_tpu/api.py:308-309``);
+  * the span path keeps the windowed layout whatever ``span_layout`` says,
+    as the JAX package's sharded step builds a ``SpanIndex``
+    (``wembed_tpu/distributed/step.py:55-70``; ``_span_layout``);
   * ``dump_weights`` and the progress lines are rank 0's.
 
 Every rank calls every method, in the same order (one program, many
@@ -90,6 +93,14 @@ class MultiChipEmbedder(WEmbedEmbedder):
     @profile.setter
     def profile(self, on: bool) -> None:
         pass  # the normal step, as the JAX package's distributed embedders run it
+
+    def _span_layout(self) -> str:
+        """Windows: the cell layout is single-device in the JAX package
+        (``wembed_tpu/kernels/span_compact.py:46-47``), whose multi-device
+        steps build a ``SpanIndex`` (``distributed/step.py:55-70``, and the
+        halo step, ``distributed/halo.py:200-220``, which ``HaloEmbedder``
+        inherits this from)."""
+        return "windows"
 
     def _reduce(self, force, zero_count, att_loss, rep_loss, rep_count, overflow):
         """Every rank's partials summed in one all-reduce, packed in f64:

@@ -42,6 +42,11 @@ on every rank, as in the JAX package.  A halo rank
 items of its range of query blocks, ``block_items``), and its index holds
 only its chunk of the correction edges.
 
+The cell layout (``kernels/span_compact.py``) shares steps 3 and 4: its
+index and structures have this module's surface (``structures``,
+``tensors``, ``work_items``, ``covers``), so ``_sweep``,
+``span_fused_forces`` and ``span_repulsion_forces`` take either layout.
+
 What the TPU layout needed and the port drops: the flattened, bucketed
 work-tile list and its scalar-prefetch tables (the CUDA kernel reads the
 (NB, R) ``blk_t`` and ``start_tile`` tables and a work-item table built
@@ -119,6 +124,16 @@ def _merge_weight_groups(weights: np.ndarray, opts):
     group_of = np.asarray([remap[class_group[c]] for c in assignment], np.int32)
     class_bm2 = (class_max[assignment] ** (2.0 / d)).astype(np.float32)
     return group_of, group_sizes, bmaxpow, class_bm2, b, assignment
+
+
+def _edge_tables(n: int, edge_src, edge_dst, class_bm2: np.ndarray):
+    """The neighbour correction's directed edges in CSR (src-sorted) order:
+    (src (E,) i64, dst (E,) i64, class_bm2 of each dst (E,) f32, row
+    pointers (n+1,) i64).  Shared by both span layouts."""
+    esrc = np.asarray(edge_src, np.int64)
+    edst = np.asarray(edge_dst, np.int64)
+    row_ptr = np.searchsorted(esrc, np.arange(n + 1)).astype(np.int64)
+    return esrc, edst, class_bm2[edst], row_ptr
 
 
 class SpanTensors(NamedTuple):
@@ -289,6 +304,10 @@ class SpanIndex:
         inside = torch.empty((self.n,), dtype=torch.bool, device=generator.device)
         inside[order] = pos < t.class_take[cls]
         return inside
+
+    def structures(self, positions, inv_w, weights, colors, opts, blk_t=None, in_index=None):
+        """This step's structures (``build_span_structures``)."""
+        return build_span_structures(positions, inv_w, weights, colors, self, opts, blk_t, in_index)
 
     def blk_t_tensor(self, device: torch.device) -> torch.Tensor:
         return torch.as_tensor(np.asarray(self.blk_t, np.int32), device=device)
@@ -474,8 +493,7 @@ class SpanIndex:
                 blk_last_l.append(o + min((li + 1) * _Q, sz) - 1)
         assert len(blk_first_l) == nb
 
-        esrc = np.asarray(edge_src, np.int64)
-        edst = np.asarray(edge_dst, np.int64)
+        esrc, edst, edge_bm2, edge_row_ptr = _edge_tables(n, edge_src, edge_dst, class_bm2)
         return SpanIndex(
             n=n,
             d=d,
@@ -506,8 +524,8 @@ class SpanIndex:
             blk_row=blk_row,
             edge_src=esrc,
             edge_dst=edst,
-            edge_bm2=class_bm2[edst],
-            edge_row_ptr=np.searchsorted(esrc, np.arange(n + 1)).astype(np.int64),
+            edge_bm2=edge_bm2,
+            edge_row_ptr=edge_row_ptr,
             span_scale=float(span_scale),
         )
 
@@ -533,6 +551,32 @@ class SpanStructures(NamedTuple):
     lwpow: torch.Tensor  # (n,) L * w^(1/d)
     overflow: torch.Tensor  # i64 scalar, in-radius members beyond the windows
     need: torch.Tensor  # (NB, R) i64 window members needed, from the tile-aligned start
+
+    def covers(self, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+        """Whether the sweep of src's query block visits member dst: dst's
+        row-local rank lies in the block's window on dst's row."""
+        pair = self.block_of[src] * self.blk_t.shape[1] + self.row_of[dst]
+        lo = self.start_tile.reshape(-1)[pair].to(torch.int64) * _ST
+        hi = lo + self.blk_t.reshape(-1)[pair].to(torch.int64) * _ST
+        rank = self.rank_of[dst]
+        return (rank >= lo) & (rank < hi)
+
+
+def _with_sentinel(rows: torch.Tensor, value) -> torch.Tensor:
+    """``rows`` and one more row ``value`` at index n, which padding slots
+    read; made on the device (a host tensor would cost a synchronising
+    copy every step)."""
+    extra = torch.full((1, *rows.shape[1:]), value, dtype=rows.dtype, device=rows.device)
+    return torch.cat([rows, extra])
+
+
+def _with_record_sentinel(rows: torch.Tensor, position: float) -> torch.Tensor:
+    """(n, d+3) records and a sentinel record at index n: far away at
+    ``position``, invw 1, radius factor and 1/invw 0."""
+    extra = torch.zeros((1, rows.shape[1]), dtype=rows.dtype, device=rows.device)
+    extra[:, : rows.shape[1] - 3] = position
+    extra[:, rows.shape[1] - 3] = 1.0
+    return torch.cat([rows, extra])
 
 
 def _argsort_by(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
@@ -591,18 +635,6 @@ def build_span_structures(
     y_ord = y[order]
     rawexp_s = 1.0 / invw_s
 
-    # padding slots read a sentinel row n, made on the device (a host tensor
-    # here would cost a synchronising copy every step)
-    def with_sentinel(rows, value):
-        extra = torch.full((1, *rows.shape[1:]), value, dtype=rows.dtype, device=device)
-        return torch.cat([rows, extra])
-
-    def with_record_sentinel(rows, position):
-        extra = torch.zeros((1, d + 3), dtype=dtype, device=device)
-        extra[:, :d] = position  # far away; invw 1; radius factor and 1/invw 0
-        extra[:, d] = 1.0
-        return torch.cat([rows, extra])
-
     # ---- records, gathered through the static slot maps
     mpos_s, bm2_s = pos_s, t.class_bm2.to(dtype)[order]
     if in_index is not None:
@@ -610,13 +642,13 @@ def build_span_structures(
         mpos_s = torch.where(member[:, None], pos_s, _S_SENTINEL)
         bm2_s = torch.where(member, bm2_s, 0.0)
     svals = torch.cat([mpos_s, invw_s[:, None], bm2_s[:, None], rawexp_s[:, None]], dim=1)
-    srec = with_record_sentinel(svals, _S_SENTINEL)[t.src_of_pad]
+    srec = _with_record_sentinel(svals, _S_SENTINEL)[t.src_of_pad]
     qvals = torch.cat(
         [pos_s, invw_s[:, None], (lwpow_s * lwpow_s)[:, None], rawexp_s[:, None]], dim=1
     )
-    qrec = with_record_sentinel(qvals, _Q_SENTINEL)[t.src_of_q]
-    scol = with_sentinel(col_s, -3)[t.src_of_pad].to(torch.int32)
-    qcol = with_sentinel(col_s, -2)[t.src_of_q].to(torch.int32)
+    qrec = _with_record_sentinel(qvals, _Q_SENTINEL)[t.src_of_q]
+    scol = _with_sentinel(col_s, -3)[t.src_of_pad].to(torch.int32)
+    qcol = _with_sentinel(col_s, -2)[t.src_of_q].to(torch.int32)
 
     # ---- per-block conservative windows in both axes.  A block is a
     # contiguous rank range of its row, so its second-axis extrema sit at
@@ -624,9 +656,9 @@ def build_span_structures(
     # reduction.  Row first-axis extrema sit at static ranks of sort 1.
     minx = x_s[t.blk_first]
     maxx = x_s[t.blk_last]
-    maxlw = with_sentinel(lwpow_s, 0.0)[t.src_of_q].view(nb, _Q).amax(dim=1)
+    maxlw = _with_sentinel(lwpow_s, 0.0)[t.src_of_q].view(nb, _Q).amax(dim=1)
     qmask = (t.src_of_q < n).view(nb, _Q)
-    y_q = with_sentinel(y_ord, 0.0)[t.src_of_q].view(nb, _Q)
+    y_q = _with_sentinel(y_ord, 0.0)[t.src_of_q].view(nb, _Q)
     big = torch.finfo(dtype).max
     ymin_blk = torch.where(qmask, y_q, big).amin(dim=1)
     ymax_blk = torch.where(qmask, y_q, -big).amax(dim=1)
@@ -641,7 +673,7 @@ def build_span_structures(
     hi = maxx[:, None] + reach
     # every bound in one batched search over the rows' sorted second-axis
     # values, +inf past each row's end
-    xrows = with_sentinel(x_s, float("inf"))[t.row_grid]  # (R, max row size)
+    xrows = _with_sentinel(x_s, float("inf"))[t.row_grid]  # (R, max row size)
     start = torch.searchsorted(xrows, lo.T.contiguous(), side="left").T
     stop = torch.searchsorted(xrows, hi.T.contiguous(), side="right").T
     start = torch.where(overlap, start, 0)
@@ -694,12 +726,13 @@ def block_items(idx: SpanIndex, b0: int, b1: int) -> tuple[int, int]:
     return int(lo), int(hi)
 
 
-def _sweep(s: SpanStructures, idx: SpanIndex, opts, items: torch.Tensor | None = None, share=None):
+def _sweep(s, idx, opts, items: torch.Tensor | None = None, share=None):
     """The kernel's per-slot results back on vertices: (force (n, d),
-    rep_loss, candidate count (i64), zero_count (n,) i32).  ``items`` is
-    the work-item table of the windows ``s`` was built for (default: the
-    index's, copied to the device here), or a contiguous slice of it;
-    ``share`` sweeps its slice of them."""
+    rep_loss, candidate count (i64), zero_count (n,) i32), for either
+    layout's index and structures.  ``items`` is the work-item table of
+    the windows (or capacities) ``s`` was built for (default: the index's,
+    copied to the device here), or a contiguous slice of it; ``share``
+    sweeps its slice of them."""
     device = s.qrec.device
     t = idx.tensors(device)
     if items is None:
@@ -737,16 +770,18 @@ def _edge_range(idx: SpanIndex, device, share):
 
 
 def _edge_terms(
-    positions, inv_w, colors, s: SpanStructures, idx: SpanIndex, opts, lo: int, hi: int,
+    positions, inv_w, colors, s, idx, opts, lo: int, hi: int,
     in_index: torch.Tensor | None = None,
 ) -> _EdgeTerms:
     """Per directed edge (src, dst) of edges [lo, hi): the distance, the
     weight scale, and whether the sweep counted and repelled the pair.
     The sweep's query is src and its member dst, so every test repeats the
     sweep's own f32 operations: dist2 over dimensions in ascending k, the
-    radius test as lw_src^2 * bm2_dst, the window coverage of dst's
-    row-local rank, the colour filter, and under a partial index dst's
-    membership (``wembed_tpu/core/candidates.py:836-837``)."""
+    radius test as lw_src^2 * bm2_dst, the colour filter, under a partial
+    index dst's membership (``wembed_tpu/core/candidates.py:836-837``), and
+    the layout's coverage of dst by src's block (``s.covers``: a window
+    of ``SpanStructures``, or a cell window and the block's capacity of
+    ``span_compact.CellStructures``)."""
     t = idx.tensors(positions.device)
     dtype = positions.dtype
     src, dst = t.edge_src[lo:hi], t.edge_dst[lo:hi]
@@ -755,14 +790,9 @@ def _edge_terms(
     iw_s, iw_d = iw[src], iw[dst]
     ws = iw_s + iw_d if opts.additive_weights else iw_s * iw_d
     lw = s.lwpow[src]
-    pair = s.block_of[src] * idx.num_rows + s.row_of[dst]
-    cov_lo = s.start_tile.reshape(-1)[pair].to(torch.int64) * _ST
-    cov_hi = cov_lo + s.blk_t.reshape(-1)[pair].to(torch.int64) * _ST
-    rank = s.rank_of[dst]
     included = (
         (dist2 <= (lw * lw) * t.edge_bm2[lo:hi].to(dtype))
-        & (rank >= cov_lo)
-        & (rank < cov_hi)
+        & s.covers(src, dst)
         & (colors[src] != colors[dst])
     )
     if in_index is not None:
@@ -808,8 +838,10 @@ def span_fused_forces(
     get a random unit kick from ``generator`` instead
     (NewWEmbedEmbedder.cpp:197-200): an (E, d) draw, whole on every rank.
 
-    ``blk_t`` and ``items`` (default: the index's windows and work items)
-    go together; ``in_index`` is the step's member sample of a partial
+    ``idx`` is a ``SpanIndex`` or a ``span_compact.CellIndex`` (whose
+    ``blk_t`` are its (NB, 1) capacities).  ``blk_t`` and ``items``
+    (default: the index's windows and work items) go together;
+    ``in_index`` is the step's member sample of a partial
     index (``SpanIndex.draw_members``); ``share`` (anything with
     ``cut(total) -> (lo, hi)``, ``core/step.py:Share``) computes one rank's
     partial: its slice of the work items and its range of the edges.
@@ -817,9 +849,7 @@ def span_fused_forces(
     zero_count (n,) i32)."""
     d = positions.shape[1]
     if structures is None:
-        structures = build_span_structures(
-            positions, inv_w, weights, colors, idx, opts, blk_t, in_index
-        )
+        structures = idx.structures(positions, inv_w, weights, colors, opts, blk_t, in_index)
     force_k, rep_loss, rep_count, zero_count = _sweep(structures, idx, opts, items, share)
     lo, hi, row_ptr = _edge_range(idx, positions.device, share)
     e = _edge_terms(positions, inv_w, colors, structures, idx, opts, lo, hi, in_index)
@@ -861,16 +891,14 @@ def span_repulsion_forces(
 ):
     """Repulsion alone: the sweep and the O(E) neighbour correction over
     the index's directed edges (all of them, or a halo rank's chunk of
-    them), with ``in_index`` as in ``span_fused_forces``.  ``items`` may be
-    a slice of the work items.
+    them), for either layout's index, with ``in_index`` as in
+    ``span_fused_forces``.  ``items`` may be a slice of the work items.
 
     Returns (force (n, d), rep_loss, rep_count, overflow, zero_count (n,)
     i32).  The count uses each member's per-doubling-class radius, so it is
     the reference's per-class candidate count when no window truncates."""
     if structures is None:
-        structures = build_span_structures(
-            positions, inv_w, weights, colors, idx, opts, blk_t, in_index
-        )
+        structures = idx.structures(positions, inv_w, weights, colors, opts, blk_t, in_index)
     force_k, loss, count, zero_count = _sweep(structures, idx, opts, items)
     lo, hi, row_ptr = _edge_range(idx, positions.device, None)
     e = _edge_terms(positions, inv_w, colors, structures, idx, opts, lo, hi, in_index)

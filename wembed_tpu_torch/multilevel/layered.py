@@ -10,7 +10,9 @@ embedder, then repeatedly expand to the next-finer layer —
 state and iteration counter) per layer, with per-layer degree weights.
 
 Every layer's embedder runs on ``device``: layers up to ``dense_threshold``
-vertices take the dense kernel, larger ones the span path.  The coarser
+vertices take the dense kernel, larger ones the span path, in the layout
+the options pick (``span_layout="cells"``: the cell layout, as in the JAX
+package, whose layers share its options too).  The coarser
 embedder is dropped before the finer one is built, so its device tensors
 are free for the finer layer (the JAX package clears its compile caches at
 that point instead).
