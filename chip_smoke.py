@@ -11,8 +11,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      each in a subprocess;
   2. build the CUDA kernels from ``wembed_tpu_torch/csrc`` (one nvcc per
      source) and the layered path's host label propagation (g++), all
-     started together; print the kernels' registers and spills, and fail
-     on any spill at d <= 4;
+     started together, compiled even where a library of the same sources
+     exists; print the kernels' registers and spills, and fail on any
+     spill at d <= 4;
   3. hold the fused force kernel against its plain PyTorch version on the
      card: girg10k d=2 with degree weights at positions after 20 steps of
      a seeded run (timed), n = 16384, the largest dense size (timed),
@@ -57,6 +58,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      reference's; then a breakdown of a step at the converged positions by
      CUDA events (with the sweep at other item sizes) and a profile of 20
      further steps;
+ 10b. the captured step (``core/step.py:StepGraph``): the Adam update
+     with the optimizer schedule's device rows bitwise the update by host
+     scalars on the card (t = 1 ... 1000, f32 and f64); girg10k (dense),
+     girg100k (span) and girg100k with ``index_size=0.5``, 120 steps from
+     seed 1 replayed from CUDA graphs and run eagerly: state bitwise
+     equal, the same iterations, launches and window changes, at least one
+     window change on the span runs and one capture a run; host ms a step
+     of both modes, and from a trace one sweep and one reduction (or one
+     dense kernel) a replay;
  11. the layered main path: the API with ``layeredEmbedding=True`` on
      girg100k, d=2, seed 1: a ``layer`` line a layer, every layer below
      1000 iterations, the dense kernel launched once per iteration of the
@@ -199,6 +209,8 @@ PHASES = ("attracting_forces", "repelling_forces", "apply_forces", "gravity", "p
 NEGATIVE_SAMPLES = 10
 DEBUG_STEPS = 20
 REDUCE_STEPS = 50  # steps of the two-rank run that times its all-reduce
+GRAPH_STEPS = 120  # steps of each step-graph run: past the window changes at 50 and 100
+STEPS_TIMED = 20  # further single steps of each step-graph run, timed one by one
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1429,13 +1441,17 @@ def partial_index_run(graph, tmp: Path) -> dict:
     api.setSeed(1)
     impl = make()
     check(impl.path == "span" and impl._index.partial, "index_size=0.5 is not a partial span index")
-    tallies = []
+    # [steps checked, steps with a class of the wrong size], tallied on the
+    # card in place by every step, a replayed one too: a step's draw and its
+    # tally are captured together, and nothing is read back until the end
+    tally = torch.zeros(2, dtype=torch.int64, device="cuda")
     draw = span_sparse.SpanIndex.draw_members
 
     def counting_draw(index, generator):
         member = draw(index, generator)
         t = index.tensors(generator.device)
-        tallies.append((torch.bincount(t.class_of[member], minlength=t.class_take.shape[0]), t.class_take))
+        counts = torch.zeros_like(t.class_take).index_add_(0, t.class_of, member.to(torch.int64))
+        tally.add_(torch.stack([torch.ones_like(tally[0]), (counts != t.class_take).any().to(torch.int64)]))
         return member
 
     span_sparse.SpanIndex.draw_members = counting_draw
@@ -1443,14 +1459,169 @@ def partial_index_run(graph, tmp: Path) -> dict:
         row = converge("partial_index_girg100k", impl, graph, "span_sweep")
     finally:
         span_sparse.SpanIndex.draw_members = draw
-    exact = all(bool(torch.equal(c, t)) for c, t in tallies)
-    row.update(steps_checked=len(tallies), class_sizes_exact=exact,
+    checked, wrong = tally.tolist()
+    exact = wrong == 0
+    row.update(steps_checked=checked, class_sizes_exact=exact,
                members=int(impl._index.class_take.sum()), n=impl.num_vertices)
-    print("partial_index_samples " + json.dumps(dict(steps_checked=len(tallies), exact=exact,
+    print("partial_index_samples " + json.dumps(dict(steps_checked=checked, exact=exact,
                                                       members_a_step=row["members"])))
-    check(exact and len(tallies) >= impl.iteration, "partial index: a step's sample sizes are not exact")
+    check(exact and checked >= impl.iteration, "partial index: a step's sample sizes are not exact")
     resume = flat_resume("girg100k_half_index", graph, "span_sweep", tmp, make=make)
     return dict(row, resume=resume)
+
+
+def adam_by_host_scalars(params, grads, m, v, t: int, hp):
+    """The Adam update as the port computed it before its step scalars
+    moved to the device: powers of t as host floats in the working dtype
+    (so ATen multiplies a CUDA tensor by the reciprocal of each bias
+    correction, in the tensor's dtype)."""
+    import numpy as np
+    import torch
+
+    f = np.float64 if params.dtype == torch.float64 else np.float32
+    tf = f(t)
+    cooling = np.power(f(hp.cooling_factor), tf)
+    m = hp.beta1 * m + (1.0 - hp.beta1) * grads
+    v = hp.beta2 * v + (1.0 - hp.beta2) * grads * grads
+    m_hat = m / float(f(1.0) - np.power(f(hp.beta1), tf))
+    v_hat = v / float(f(1.0) - np.power(f(hp.beta2), tf))
+    step = float(cooling * f(hp.learning_rate)) * m_hat / (torch.sqrt(v_hat) + float(f(hp.epsilon)))
+    return params + step, m, v
+
+
+def schedule_against_host_scalars(steps: int = 1000) -> dict:
+    """The Adam update with the schedule's device rows against the update
+    by host scalars on the card, state carried, t = 1 ... ``steps``, f32
+    and f64: bitwise equal at every step."""
+    import torch
+
+    from wembed_tpu_torch.core import EmbedderOptions, optim
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        schedule = optim.Schedule(EmbedderOptions(), dtype, torch.device("cuda"))
+        hp = optim.AdamParams(10.0, 0.99)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        params = torch.randn((4096, 2), generator=gen, device="cuda", dtype=dtype)
+        m = v = torch.zeros_like(params)
+        old = (params, m, v)
+        first_bad = None
+        for t in range(1, steps + 1):
+            grads = 3.0 * torch.randn((4096, 2), generator=gen, device="cuda", dtype=dtype)
+            params, m, v = optim.adam_update(params, grads, m, v, schedule.at(t), hp)
+            old = adam_by_host_scalars(*old[:1], grads, *old[1:], t, hp)
+            if first_bad is None and not all(torch.equal(a, b) for a, b in zip((params, m, v), old)):
+                first_bad = t
+        out[str(dtype).split(".")[1]] = dict(steps=steps, first_step_that_differs=first_bad)
+    print("schedule_on_card " + json.dumps(out))
+    for name, row in out.items():
+        check(row["first_step_that_differs"] is None,
+              f"the schedule's {name} update differs from the host-scalar one at t = {row['first_step_that_differs']}")
+    return out
+
+
+def kernels_a_replay(impl, steps: int = 5) -> dict:
+    """A ``torch.profiler`` window over ``steps`` replays, after two
+    replays traced and dropped (the first kernels of a window's first
+    replay can run before the tracing does): each hand kernel (and
+    helper) the trace shows, a replay."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    names = ("fused_dense_kernel", "rows_kernel", "finalize_kernel", "span_sweep_kernel",
+             "span_reduce_kernel")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=2, active=steps, repeat=1)) as prof:
+        for _ in range(steps + 2):
+            impl._state = impl._step(impl._state)
+            impl._state.pos_change.item()
+            prof.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    counts = {name: sum(f"{name}<" in e.name for e in kernels) / steps for name in names}
+    return dict(counts, all_kernels=len(kernels) / steps)
+
+
+def step_graph_runs(graph10k, graph100k) -> dict:
+    """Phase 10b: the captured step (``core/step.py:StepGraph``).  girg10k
+    (dense), girg100k (span) and girg100k with ``index_size=0.5`` (the
+    registered generator's draws), each GRAPH_STEPS steps from seed 1 with
+    the step replayed from CUDA graphs and with it run eagerly: state
+    bitwise equal, the same iterations, overflow and window changes, and
+    on the span runs at least one window change, which the captured step
+    survives (one capture a run); host ms a step of both modes (the whole
+    run, and STEPS_TIMED further steps each ending in its
+    synchronisation), and from a profiler window each kernel a replay
+    (one sweep and one reduction, or one dense kernel)."""
+    import torch
+
+    from wembed_tpu_torch import api
+    from wembed_tpu_torch.core import EmbedderOptions, WEmbedEmbedder
+
+    rows = {}
+    for name, graph, options, kernel in (
+        ("girg10k_dense", graph10k, dict(), "fused_dense"),
+        ("girg100k_span", graph100k, dict(), "span_sweep"),
+        ("girg100k_partial_index", graph100k, dict(index_size=0.5), "span_sweep"),
+    ):
+        runs = {}
+        for mode in ("graphed", "eager"):
+            api.setSeed(1)
+            impl = WEmbedEmbedder(graph.csr, EmbedderOptions(embedding_dimension=2, **options), verbose=False)
+            if mode == "eager":
+                impl._replays = lambda: False
+            swaps = []
+            swap = impl._swap_index
+            impl._swap_index = lambda index, swap=swap: (swaps.append(index.w), swap(index))
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            impl.calculate_embedding(max_iterations=GRAPH_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            state = {k: getattr(impl.state, k).clone() for k in STATE_TENSORS + ("num_rep_forces", "overflow")}
+            step_ms = []
+            for _ in range(STEPS_TIMED):
+                t1 = time.perf_counter()
+                impl._state = impl._step(impl._state)
+                impl._state.pos_change.item()
+                step_ms.append((time.perf_counter() - t1) * 1000.0)
+            runs[mode] = dict(
+                iterations=impl.iteration - STEPS_TIMED, wall_s=wall, run_ms_a_step=wall * 1000.0 / GRAPH_STEPS,
+                step_ms=sorted(step_ms)[len(step_ms) // 2], launches=launches[kernel], window_changes=len(swaps),
+                captures=impl._step_graph.captures if impl._step_graph is not None else 0,
+                state=state, impl=impl,
+            )
+        graphed, eager = runs["graphed"], runs["eager"]
+        same = all(torch.equal(graphed["state"][k], eager["state"][k]) for k in graphed["state"])
+        replay = kernels_a_replay(graphed["impl"])
+        row = dict(
+            steps=GRAPH_STEPS, bitwise_equal=same,
+            **{f"{k}_{m}": runs[m][k] for k in ("iterations", "wall_s", "run_ms_a_step", "step_ms", "launches",
+                                                "window_changes", "captures") for m in ("graphed", "eager")},
+            kernels_a_replay=replay,
+        )
+        print(f"step_graph_{name} " + json.dumps(row))
+        check(same, f"step graph {name}: graphed and eager states differ after {GRAPH_STEPS} steps")
+        check(row["iterations_graphed"] == row["iterations_eager"] == GRAPH_STEPS,
+              f"step graph {name}: iterations {row['iterations_graphed']} / {row['iterations_eager']}")
+        check(row["launches_graphed"] == row["launches_eager"] == GRAPH_STEPS,
+              f"step graph {name}: launches {row['launches_graphed']} / {row['launches_eager']}")
+        check(row["window_changes_graphed"] == row["window_changes_eager"],
+              f"step graph {name}: window changes differ")
+        check(row["captures_eager"] == 0 and row["captures_graphed"] == 1, f"step graph {name}: captures")
+        if kernel == "span_sweep":
+            check(row["window_changes_graphed"] >= 1,
+                  f"step graph {name}: no window change in {GRAPH_STEPS} steps")
+            check(replay["span_sweep_kernel"] == replay["span_reduce_kernel"] == 1,
+                  f"step graph {name}: {replay} a replay")
+        else:
+            check(replay["fused_dense_kernel"] == 1, f"step graph {name}: {replay} a replay")
+        del graphed["impl"], eager["impl"]
+        rows[name] = row
+    return rows
 
 
 def replicated_one_rank(graph, kernel: str, single: dict, name: str) -> dict:
@@ -1997,10 +2168,12 @@ def run_phases(kind, generators: dict) -> int:
     from wembed_tpu_torch import api
     from wembed_tpu_torch.kernels import _build, fused_dense, span_sweep
 
-    # ---- phase 2: build, one compiler per source, all started together
+    # ---- phase 2: build, one compiler per source, all started together;
+    # compiled even where a library of the same sources exists (a benchmark
+    # run before in this checkout), for ptxas's report
     sources = KERNELS + HOST_SOURCES
     with ThreadPoolExecutor(len(sources)) as pool:
-        infos = dict(zip(sources, pool.map(_build.build, sources)))
+        infos = dict(zip(sources, pool.map(_build.compile_library, sources)))
     for name, info in infos.items():
         print(f"build {name}: {info.seconds:.3f} s -> {info.path.name}")
         for line in info.log.splitlines():
@@ -2282,6 +2455,12 @@ def run_phases(kind, generators: dict) -> int:
     print("span_breakdown " + json.dumps(span_breakdown(impl)))
     print("profile_span " + json.dumps(profile_steps(impl)))
     del embedder, impl, state
+
+    # ---- phase 10b: the captured step against the eager one
+    t10b = time.perf_counter()
+    schedule_against_host_scalars()
+    step_graph = step_graph_runs(graph10k, graph)
+    print("phase10b " + json.dumps(dict(seconds=time.perf_counter() - t10b)))
 
     # ---- phase 11: the layered main path, girg100k
     layered = layered_main_path(graph, flat["MAP"])

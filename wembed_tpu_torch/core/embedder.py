@@ -13,10 +13,13 @@ layout (``kernels/span_sparse.py:SpanIndex``) or with
 sampling (``num_negative_samples >= 0``) takes the sampled path at any
 size.
 
-``profile`` (also when set after construction) splits every step into the
-reference's timed phases (``step.profiled_step``); ``opts.dump_weights``
-appends the weights to ``weight_dump.txt`` every step; with either, the
-loop is a host loop of ``calculate_step``.  ``opts.debug_checks`` raises
+On a CUDA device the dense and span steps replay CUDA graphs captured
+from the eager step (``step.StepGraph``, ``_replays``): bitwise the same
+trajectory.  ``profile`` (also when set after construction) splits every
+step into the reference's timed phases (``step.profiled_step``);
+``opts.dump_weights`` appends the weights to ``weight_dump.txt`` every
+step; with either, the loop is a host loop of ``calculate_step``, and
+those steps run eagerly.  ``opts.debug_checks`` raises
 ``FloatingPointError`` when a state tensor goes non-finite.  Checkpoints:
 ``core/checkpoint.py``.
 """
@@ -34,6 +37,7 @@ from ..utils.timer import Timer, TimingResult
 from . import forces
 from . import step as step_mod
 from . import weights as weights_mod
+from .optim import Schedule
 from ..kernels.span_compact import CellIndex
 from ..kernels.span_sparse import SpanIndex
 from .options import EmbedderOptions
@@ -81,6 +85,9 @@ class WEmbedEmbedder(SpanGrowthMixin):
     # the force pass's share on one rank of a replicated multi-device run
     # (``distributed/step.py``); None: the whole pass
     _share: step_mod.Share | None = None
+    # the captured step that the loop replays (``_replays``), made at the
+    # first step
+    _step_graph: step_mod.StepGraph | None = None
 
     def __init__(
         self,
@@ -104,6 +111,8 @@ class WEmbedEmbedder(SpanGrowthMixin):
         self.profile = profile
         self._dtype = torch.float64 if self.opts.dtype == "float64" else torch.float32
         self._dg = DeviceGraph.build(graph, self.device)
+        # every step's optimizer scalars on the device
+        self._schedule = Schedule(self.opts, self._dtype, self.device)
         # the dense path's (n, n) bit adjacency; the other paths never build it
         self._adj = forces.build_dense_adjacency(self._dg) if self._path == "dense" else None
         # the span path's index, its windows or capacities on the device and
@@ -134,6 +143,7 @@ class WEmbedEmbedder(SpanGrowthMixin):
             raise ValueError(
                 f"weights shape {w.shape} != ({self.graph.num_vertices},)"
             )
+        self._drop_step_graph()  # it reads the weight tensors replaced here
         self._weights_np = w
         self._weights = torch.as_tensor(w, dtype=self._dtype, device=self.device)
         self._inv_w = torch.as_tensor(
@@ -171,9 +181,20 @@ class WEmbedEmbedder(SpanGrowthMixin):
         """Install resized windows or capacities: the skeleton's device
         tables are shared, only the window widths ((NB, R), or the (NB, 1)
         capacities of a cell index) and the sweep's work items move to the
-        device, once per change."""
-        self._index = index
-        self._blk_t = index.blk_t_tensor(self.device)
+        device, once per change.  Resized windows of the same skeleton are
+        written into the windows tensor in place, which the captured step
+        reads (it takes the work items at every step); anything else (a new
+        skeleton, or cell capacities, which size the cell structures) drops
+        the captured step."""
+        old, self._index = self._index, index
+        if (
+            isinstance(index, SpanIndex) and isinstance(old, SpanIndex)
+            and index.tensors(self.device) is old.tensors(self.device)
+        ):
+            self._blk_t.copy_(torch.as_tensor(np.asarray(index.blk_t, np.int32)))
+        else:
+            self._drop_step_graph()
+            self._blk_t = index.blk_t_tensor(self.device)
         self._items = index.work_items(self.device)
 
     def _span_structures(self):
@@ -182,19 +203,50 @@ class WEmbedEmbedder(SpanGrowthMixin):
             self.opts, self._blk_t,
         )
 
+    def _replays(self) -> bool:
+        """Whether steps replay a captured CUDA graph
+        (``step.StepGraph``): on a CUDA device, on one device (no share),
+        on the dense or span path, and without weight dumps.  The sampled
+        path, a share's step (its collectives), the profiled step (its
+        CUDA events are read every step) and weight dumps (a host action a
+        step) run eagerly, as does every step on the CPU."""
+        return (
+            self.device.type == "cuda" and self._share is None
+            and self._path in ("dense", "span") and not self.opts.dump_weights
+        )
+
+    def _drop_step_graph(self) -> None:
+        """Free the captured step: something it reads was replaced."""
+        if self._step_graph is not None:
+            self._step_graph.reset()
+
     def _step(self, state: EmbedState) -> EmbedState:
+        scalars = self._schedule.at(state.iteration + 1)
+        if self._step_graph is None and self._replays():
+            self._step_graph = step_mod.StepGraph(self.device)
+        if self._step_graph is not None:
+            return self._step_graph.step(state, self._path_step, scalars, self._items)
+        return self._path_step(state, scalars)
+
+    def _path_step(self, state: EmbedState, scalars: torch.Tensor, sweep=None) -> EmbedState:
+        """One step of this embedder's path with the optimizer ``scalars``
+        of the step; ``sweep`` makes the span sweep's kernel call
+        (``step.StepGraph``)."""
         if self._span:
             return step_mod.span_step(
                 state, self._weights, self._inv_w, self._dg, self._index, self._blk_t,
-                self._items, self.opts, self._share,
+                self._items, self.opts, scalars, self._share, sweep,
             )
         if self._path == "sampled":
-            return step_mod.sampled_step(state, self._inv_w, self._dg, self.opts, self._share)
-        return step_mod.fused_step(state, self._inv_w, self._adj, self._dg, self.opts, self._share)
+            return step_mod.sampled_step(state, self._inv_w, self._dg, self.opts, scalars, self._share)
+        return step_mod.fused_step(
+            state, self._inv_w, self._adj, self._dg, self.opts, scalars, self._share
+        )
 
     def _profiled_step(self, state: EmbedState) -> EmbedState:
         return step_mod.profiled_step(
-            self._path, state, self._weights, self._inv_w, self._dg, self.opts, self.timer,
+            self._path, state, self._weights, self._inv_w, self._dg, self.opts,
+            self._schedule.at(state.iteration + 1), self.timer,
             adj=self._adj, index=self._index, blk_t=self._blk_t, items=self._items,
         )
 
@@ -313,16 +365,21 @@ class WEmbedEmbedder(SpanGrowthMixin):
     # ------------------------------------------------------------- accessors
     @property
     def state(self) -> EmbedState:
+        """The state after the last step.  Where steps replay a captured
+        graph (``_replays``), its tensors are the graph's buffers, which
+        the next step overwrites: clone what must outlive it."""
         return self._state
 
     @state.setter
     def state(self, s: EmbedState) -> None:
+        self._drop_step_graph()
         self._state = s
 
     def load_host_state(self, s: EmbedState) -> None:
         """Install a whole state (n rows a tensor, as ``host_state`` gives
         it and a checkpoint restores it); the embedder keeps its own rows
         of it."""
+        self._drop_step_graph()
         self._state = dataclasses.replace(
             s, positions=self._own_rows(s.positions), adam_m=self._own_rows(s.adam_m),
             adam_v=self._own_rows(s.adam_v),
@@ -356,6 +413,7 @@ class WEmbedEmbedder(SpanGrowthMixin):
             k = min(d, coordinates.shape[1])
             current[:, :k] = coordinates[:, :k]
             coordinates = current
+        self._drop_step_graph()
         self._state = dataclasses.replace(
             self._state,
             positions=self._own_rows(

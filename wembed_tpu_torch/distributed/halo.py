@@ -371,7 +371,9 @@ class HaloEmbedder(MultiChipEmbedder):
         n, rows = self.plan.n, self._rank_plan.rows
         pos_l = state.positions
         d, dtype = pos_l.shape[1], pos_l.dtype
-        positions, m, v, t = step_mod._apply_forces(state, self.opts, force, zero, n, self._own_rows)
+        positions, m, v, t = step_mod._apply_forces(
+            state, self.opts, force, zero, self._schedule.at(state.iteration + 1), n, self._own_rows
+        )
         f64 = torch.float64
         a = (pos_l[:rows] - positions[:rows]).to(f64)
         packed = torch.cat([

@@ -14,4 +14,26 @@ def launch_counts() -> dict[str, int]:
     return {"fused_dense": fused_dense_forces.launches, "span_sweep": _span_sweep.span_sweep.launches}
 
 
+# every launch counter: (wrapper, attribute)
+_COUNTERS = (
+    (fused_dense_forces, "launches"),
+    (fused_dense_forces, "launches_general"),
+    (_span_sweep.span_sweep, "launches"),
+    (_span_sweep.span_sweep, "launches_general"),
+)
+
+
+def counters() -> tuple[int, ...]:
+    """Every wrapper's launch counters, in one fixed order: the
+    bookkeeping of a captured step (``core/step.py:StepGraph``), whose
+    replays launch kernels without calling their wrappers."""
+    return tuple(getattr(fn, name) for fn, name in _COUNTERS)
+
+
+def add_to_counters(counts: tuple[int, ...]) -> None:
+    """Add ``counts`` (in the order of ``counters()``) to the counters."""
+    for (fn, name), k in zip(_COUNTERS, counts):
+        setattr(fn, name, getattr(fn, name) + k)
+
+
 __all__ = ["fused_dense_forces", "fused_dense_forces_reference", "launch_counts"]

@@ -75,24 +75,37 @@ def _sources(name: str) -> list[Path]:
     raise FileNotFoundError(cuda)
 
 
-def build(name: str) -> BuildInfo:
-    """Compile ``csrc/<name>.cu`` or ``csrc/<name>.cpp`` unless a library of
-    the same sources exists."""
+def _library(name: str) -> tuple[Path, list[Path], tuple[str, ...]]:
+    """(library path, sources, flags) of ``csrc/<name>``: the path's hash
+    covers the sources and the flags."""
     sources = _sources(name)
-    cuda = sources[0].suffix == ".cu"
-    flags = NVCC_FLAGS if cuda else GXX_FLAGS
+    flags = NVCC_FLAGS if sources[0].suffix == ".cu" else GXX_FLAGS
     digest = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so", sources, flags
+
+
+def build(name: str) -> BuildInfo:
+    """Compile ``csrc/<name>.cu`` or ``csrc/<name>.cpp`` unless a library of
+    the same sources exists (then with no compiler log)."""
+    out, _, _ = _library(name)
     if out.exists():
         return BuildInfo(out, 0.0, "")
+    return compile_library(name)
+
+
+def compile_library(name: str) -> BuildInfo:
+    """Compile ``csrc/<name>`` into its library path whether or not it
+    exists, for the compiler's log (ptxas's register and spill report)."""
+    out, sources, flags = _library(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # build to a private name, then rename: a concurrent process never
     # loads a half-written library
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc() if cuda else _gxx(), *flags, "-o", str(tmp), str(sources[0])]
+    compiler = _nvcc() if sources[0].suffix == ".cu" else _gxx()
+    cmd = [compiler, *flags, "-o", str(tmp), str(sources[0])]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

@@ -726,13 +726,15 @@ def block_items(idx: SpanIndex, b0: int, b1: int) -> tuple[int, int]:
     return int(lo), int(hi)
 
 
-def _sweep(s, idx, opts, items: torch.Tensor | None = None, share=None):
+def _sweep(s, idx, opts, items: torch.Tensor | None = None, share=None, sweep=None):
     """The kernel's per-slot results back on vertices: (force (n, d),
     rep_loss, candidate count (i64), zero_count (n,) i32), for either
     layout's index and structures.  ``items`` is the work-item table of
     the windows (or capacities) ``s`` was built for (default: the index's,
     copied to the device here), or a contiguous slice of it; ``share``
-    sweeps its slice of them."""
+    sweeps its slice of them.  ``sweep(span_sweep, *args, **kw)``, when
+    given, makes the kernel's call (a captured step's,
+    ``core/step.py:StepGraph``)."""
     device = s.qrec.device
     t = idx.tensors(device)
     if items is None:
@@ -740,10 +742,11 @@ def _sweep(s, idx, opts, items: torch.Tensor | None = None, share=None):
     if share is not None:
         lo, hi = share.cut(items.shape[0])
         items = items[lo:hi]
-    force_q, loss_q, count_q, zero_q = span_sweep(
-        s.qrec, s.qcol, s.srec, s.scol, s.blk_t, s.start_tile, t.tile_off,
-        dim=idx.d, L=opts.edge_length, rep_scale=opts.repulsion_scale,
-        additive=opts.additive_weights, items=items,
+    args = (s.qrec, s.qcol, s.srec, s.scol, s.blk_t, s.start_tile, t.tile_off)
+    kw = dict(dim=idx.d, L=opts.edge_length, rep_scale=opts.repulsion_scale,
+              additive=opts.additive_weights, items=items)
+    force_q, loss_q, count_q, zero_q = (
+        span_sweep(*args, **kw) if sweep is None else sweep(span_sweep, *args, **kw)
     )
     return (
         force_q[s.slot_of],
@@ -828,6 +831,7 @@ def span_fused_forces(
     items: torch.Tensor | None = None,
     in_index: torch.Tensor | None = None,
     share=None,
+    sweep=None,
 ):
     """The sweep plus ONE edge pass doing attraction and the neighbour
     correction together: both act along pos_dst - pos_src with a scalar
@@ -844,13 +848,14 @@ def span_fused_forces(
     ``in_index`` is the step's member sample of a partial
     index (``SpanIndex.draw_members``); ``share`` (anything with
     ``cut(total) -> (lo, hi)``, ``core/step.py:Share``) computes one rank's
-    partial: its slice of the work items and its range of the edges.
+    partial: its slice of the work items and its range of the edges;
+    ``sweep`` makes the kernel's call (``_sweep``).
     Returns (force (n, d), att_loss, rep_loss, rep_count, overflow,
     zero_count (n,) i32)."""
     d = positions.shape[1]
     if structures is None:
         structures = idx.structures(positions, inv_w, weights, colors, opts, blk_t, in_index)
-    force_k, rep_loss, rep_count, zero_count = _sweep(structures, idx, opts, items, share)
+    force_k, rep_loss, rep_count, zero_count = _sweep(structures, idx, opts, items, share, sweep)
     lo, hi, row_ptr = _edge_range(idx, positions.device, share)
     e = _edge_terms(positions, inv_w, colors, structures, idx, opts, lo, hi, in_index)
     L = float(opts.edge_length)

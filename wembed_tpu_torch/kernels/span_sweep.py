@@ -179,6 +179,17 @@ def span_sweep_reference(
     )
 
 
+def sweep_outputs(nq: int, dim: int, dtype: torch.dtype, device) -> tuple[torch.Tensor, ...]:
+    """Empty outputs of a sweep of ``nq`` query slots: (force (nq, dim),
+    loss (nq,), count (nq,) int32, zero (nq,) int32)."""
+    return (
+        torch.empty((nq, dim), dtype=dtype, device=device),
+        torch.empty((nq,), dtype=dtype, device=device),
+        torch.empty((nq,), dtype=torch.int32, device=device),
+        torch.empty((nq,), dtype=torch.int32, device=device),
+    )
+
+
 def _configure(lib: ctypes.CDLL) -> None:
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for name in ("wembed_span_sweep_block", "wembed_span_sweep_tile", "wembed_span_sweep_max_dim"):
@@ -265,10 +276,7 @@ def span_sweep(
     nb, rr = blk_t.shape
     n_items = items.shape[0]
     scratch = torch.empty((n_items, dim + 3, Q), dtype=dtype, device=device)
-    force = torch.empty((nq, dim), dtype=dtype, device=device)
-    loss = torch.empty((nq,), dtype=dtype, device=device)
-    count = torch.empty((nq,), dtype=torch.int32, device=device)
-    zero = torch.empty((nq,), dtype=torch.int32, device=device)
+    force, loss, count, zero = sweep_outputs(nq, dim, dtype, device)
     inputs = (*(t.data_ptr() for t in args), items.data_ptr(), n_items, nb, rr, dim)
     outputs = (scratch.data_ptr(), force.data_ptr(), loss.data_ptr(), count.data_ptr(),
                zero.data_ptr(), device.index, torch.cuda.current_stream(device).cuda_stream)
