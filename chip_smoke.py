@@ -13,7 +13,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      source) and the layered path's host label propagation (g++), all
      started together, compiled even where a library of the same sources
      exists; print the kernels' registers and spills, and fail on any
-     spill at d <= 4;
+     spill at d <= 4 and on any in the edge pass's four kernels;
   3. hold the fused force kernel against its plain PyTorch version on the
      card: girg10k d=2 with degree weights at positions after 20 steps of
      a seeded run (timed), n = 16384, the largest dense size (timed),
@@ -51,13 +51,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      d=4 after 20 steps (timed), and synthetic cases with additive weights
      at d=3, a bipartite colouring, coincident points at d=4 and starved
      windows;
+ 9c. hold the span edge pass kernel against its plain version on the
+     card, in its three modes (fused, correction, attraction): forces,
+     zero counts and counted neighbours bitwise equal, losses within
+     LOSS_RTOL; girg100k d=2 after 20 steps (timed), in f64, with a
+     partial index, over one rank's share of three and with coincident
+     endpoints; rows wider than a CTA (d=300 in f32 and f64, d=520, d=2100
+     in f64) with a vertex of 300 edges; d=4 after 20 steps (timed, in phase 9), and
+     the cell layout at d=4 (phase 13b, timed);
  10. the span main path: the API on girg100k, d=2, seed 1,
-     ``calculateEmbedding()``: below 1000 iterations, one sweep launch per
-     iteration, final overflow 0, every state tensor finite, total loss
+     ``calculateEmbedding()``: below 1000 iterations, one sweep launch and
+     one edge pass launch per iteration, final overflow 0, every state tensor finite, total loss
      within 1.15x the C++ reference's, MAP at least 0.9x the C++
      reference's; then a breakdown of a step at the converged positions by
      CUDA events (with the sweep at other item sizes) and a profile of 20
      further steps;
+ 10c. the same run through the edge pass's plain version: its
+     iterations, MAP and coordinates beside phase 10's, which must be
+     equal, with both runs' tallied losses (printed; no kernel launch
+     allowed);
  10b. the captured step (``core/step.py:StepGraph``): the Adam update
      with the optimizer schedule's device rows bitwise the update by host
      scalars on the card (t = 1 ... 1000, f32 and f64); girg10k (dense),
@@ -65,8 +77,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      seed 1 replayed from CUDA graphs and run eagerly: state bitwise
      equal, the same iterations, launches and window changes, at least one
      window change on the span runs and one capture a run; host ms a step
-     of both modes, and from a trace one sweep and one reduction (or one
-     dense kernel) a replay;
+     of both modes, and from a trace one sweep, one reduction and the
+     edge pass's two kernels (or one dense kernel) a replay;
  11. the layered main path: the API with ``layeredEmbedding=True`` on
      girg100k, d=2, seed 1: a ``layer`` line a layer, every layer below
      1000 iterations, the dense kernel launched once per iteration of the
@@ -179,7 +191,8 @@ GIRG100K_D4_MD5 = "3c113cf38828864d4bf07e943d5bd850"  # the port's generator, th
 CELLS_RESUME = 60  # steps on each side of the cells checkpoint
 GIRG100K_LAYERS = (4, 22, 133, 713, 3699)  # its dense coarse layers (seed 1, default partitioner)
 REFERENCE = REPO / "baselines" / "reference_measured.json"
-KERNELS = ("fused_dense", "span_sweep")
+KERNELS = ("fused_dense", "span_sweep", "edge_pass")
+EDGE_MODES = ("fused", "correction", "attraction")  # kernels/edge_pass.py MODES
 HOST_SOURCES = ("labelprop",)  # host C++ of the layered path, built with g++ beside the kernels
 LOSS_FACTOR = 1.15  # total loss may exceed the C++ reference's by at most this
 FORCE_RTOL = 1e-5  # summation order differs between the kernel and the plain version
@@ -814,6 +827,231 @@ def compare_span(name: str, case: dict, timed: bool) -> dict:
     return row
 
 
+def edge_case(impl, index=None, in_index=None, share=None, dtype=None, positions=None) -> dict:
+    """The edge pass's inputs at a span embedder's current positions (or
+    ``positions``), in ``dtype`` (default: the embedder's), over its index
+    (or ``index``, with the member sample ``in_index``): ``edge_inputs``."""
+    pos = impl.state.positions if positions is None else positions
+    dtype = dtype or pos.dtype
+    return edge_inputs(pos.to(dtype), impl._inv_w.to(dtype), impl._weights.to(dtype), impl._dg.colors,
+                       impl._index if index is None else index, impl.opts, in_index, share)
+
+
+def edge_inputs(pos, inv_w, weights, colors, index, opts, in_index=None, share=None) -> dict:
+    """The edge pass's inputs: the structures of ``index`` at ``pos`` (with
+    the member sample ``in_index``), the sweep's per-vertex force and zero
+    counts, kicks from a fixed seed, and the edges of ``share`` (default:
+    all of them)."""
+    import torch
+
+    from wembed_tpu_torch.core.forces import edge_share, random_unit_vectors
+    from wembed_tpu_torch.kernels import span_sparse
+
+    s = index.structures(pos, inv_w, weights, colors, opts, None, in_index)
+    force_k, _, _, zero_k = span_sparse._sweep(s, index, opts)
+    t = index.tensors(pos.device)
+    lo, hi, row_ptr = edge_share(t.edge_row_ptr, t.edge_src.shape[0], share)
+    gen = torch.Generator(device=pos.device).manual_seed(7)
+    kicks = random_unit_vectors(gen, t.edge_src.shape[0], pos.shape[1], pos.dtype)[lo:hi]
+    return dict(
+        args=(pos, inv_w, t.edge_src[lo:hi], t.edge_dst[lo:hi], row_ptr, opts),
+        kw=dict(kicks=kicks, structures=s, colors=colors, bm2=t.edge_bm2[lo:hi], in_index=in_index,
+                force=force_k, zero_count=zero_k),
+    )
+
+
+def wide_edge_case(d: int, dtype, n: int = 4000, hub: int = 300, seed: int = 90) -> dict:
+    """The edge pass's inputs at rows wider than a CTA of the kernel (256
+    threads): a random graph whose vertex 0 has ``hub`` more edges (a long
+    segment, folded by a whole CTA in slabs of 256 columns) at distances
+    around the edge length, heavy-tailed weights, windows sized to the
+    needs, in ``dtype``."""
+    import numpy as np
+    import torch
+
+    from wembed_tpu_torch.core import EmbedderOptions
+    from wembed_tpu_torch.core.weights import inv_exp_weights
+    from wembed_tpu_torch.graphs import from_edges
+    from wembed_tpu_torch.kernels import span_sparse
+
+    rng = np.random.default_rng(seed)
+    spokes = np.stack([np.zeros(hub, np.int64), rng.choice(np.arange(1, n), hub, replace=False)], 1)
+    g = from_edges(np.r_[rng.integers(0, n, size=(4 * n, 2)), spokes], num_vertices=n)
+    w = rng.pareto(2.0, n) + 1.0
+    opts = EmbedderOptions(embedding_dimension=d)
+    idx = span_sparse.SpanIndex.build(w, opts, g.edge_src, g.col_idx)
+    dev = torch.device("cuda")
+    tensors = (
+        torch.tensor(rng.uniform(0.0, np.sqrt(6.0 / d), size=(n, d)), dtype=dtype, device=dev),
+        torch.tensor(inv_exp_weights(w, d), dtype=dtype, device=dev),
+        torch.tensor(w, dtype=dtype, device=dev),
+        torch.arange(n, dtype=torch.int32, device=dev),
+    )
+    for _ in range(6):
+        s = idx.structures(*tensors, opts)
+        grown = idx.grow_from_needs(s.need.cpu().numpy())
+        if int(s.overflow) == 0 or grown is None:
+            break
+        idx = grown
+    case = edge_inputs(*tensors, idx, opts)
+    row_ptr = case["args"][4]
+    check(int((row_ptr[1:] - row_ptr[:-1]).max()) > 32, f"wide_d{d}: no segment longer than 32 edges")
+    return case
+
+
+def edge_pass_bound(mode: str, args, kw, out) -> tuple[float, str]:
+    """The edge pass's least time on the card: each input read once (the
+    structures' three per-vertex columns at 8 bytes a vertex, their window
+    tables) and each output written once, against ~(4d + 16) operations
+    an edge."""
+    import torch
+
+    pos, inv_w, src, dst, row_ptr, _ = args
+    n, d = pos.shape
+    moved = nbytes(pos, inv_w, src, dst, row_ptr, *(t for t in out if t is not None))
+    if mode != "correction":
+        moved += nbytes(kw["kicks"])
+    if mode != "attraction":
+        s = kw["structures"]
+        tables = (s.start, s.stop, s.prefix) if hasattr(s, "prefix") else (s.start_tile,)
+        moved += nbytes(kw["colors"], kw["bm2"], kw["force"], kw["zero_count"], s.lwpow, s.blk_t, *tables)
+        moved += 3 * n * 8 + (0 if kw["in_index"] is None else nbytes(kw["in_index"]))
+    return bound(src.shape[0] * (4 * d + 16), moved, f64=pos.dtype == torch.float64)
+
+
+def compare_edge_pass(name: str, case: dict, modes=EDGE_MODES, timed: bool = False) -> dict:
+    """The edge pass kernel against its plain version on the same CUDA
+    tensors, in each of ``modes``: forces, zero counts and counted
+    neighbours bitwise equal (every operation repeats the plain version's,
+    and each vertex's edges are folded in edge order from 0, as
+    ``torch.segment_reduce`` folds them), the losses within LOSS_RTOL
+    (F64_RTOL in f64; the kernel adds them in another order), two
+    launches bitwise equal; in the span modes some neighbour pair counted
+    by the sweep."""
+    import torch
+
+    from wembed_tpu_torch.kernels import edge_pass as ep
+
+    args = case["args"]
+    pos = args[0]
+    rows = {}
+    for mode in modes:
+        kw = case["kw"] if mode != "attraction" else dict(kicks=case["kw"]["kicks"])
+        label = f"{name}_{mode}"
+        before = ep.edge_pass.launches
+        out = ep.edge_pass(mode, *args, **kw)
+        torch.cuda.synchronize()
+        check(ep.edge_pass.launches == before + 1, f"{label}: the kernel did not launch")
+        same_twice(label, [t for t in out if t is not None],
+                   lambda: [t for t in ep.edge_pass(mode, *args, **kw) if t is not None])
+        ref = ep.edge_pass_reference(mode, *args, **kw)
+        torch.cuda.synchronize()
+        row = dict(case=name, mode=mode, n=pos.shape[0], d=pos.shape[1], dtype=str(pos.dtype).split(".")[1],
+                   edges=int(args[2].shape[0]), bitwise_force=bool(torch.equal(out.force, ref.force)),
+                   max_abs_err=float((out.force - ref.force).abs().max()),
+                   max_abs_force=float(ref.force.abs().max()))
+        losses = [(key, getattr(out, key), getattr(ref, key)) for key in ("att_loss", "corr_loss")
+                  if getattr(ref, key) is not None]
+        row.update({key: [float(k), float(p)] for key, k, p in losses})
+        if mode != "attraction":
+            row.update(corr_count=[int(out.corr_count), int(ref.corr_count)],
+                       coincident_neighbours=int((kw["zero_count"] - ref.zero_count).sum()),
+                       bitwise_zero=bool(torch.equal(out.zero_count, ref.zero_count)))
+        if timed:
+            row["ms"] = cuda_ms(lambda: ep.edge_pass(mode, *args, **kw), 20)
+            row["plain_ms"] = cuda_ms(lambda: ep.edge_pass_reference(mode, *args, **kw), 5)
+            row["bound_ms"], row["bound_by"] = edge_pass_bound(mode, args, kw, out)
+        print("compare_edge_pass " + json.dumps(row))
+        check(row["bitwise_force"], f"{label}: forces differ by up to {row['max_abs_err']}")
+        for key, k, p in losses:
+            check(losses_agree(float(k), float(p), pos.dtype), f"{label}: {key} {float(k)} != {float(p)}")
+        if mode != "attraction":
+            check(row["bitwise_zero"], f"{label}: zero counts differ")
+            check(row["corr_count"][0] == row["corr_count"][1] > 0, f"{label}: counted neighbours {row['corr_count']}")
+        rows[mode] = row
+    return rows
+
+
+def edge_pass_cases_d2(impl) -> dict:
+    """Phase 9c at girg100k d=2 after 20 steps: the edge pass in every
+    mode (timed), in f64, with a partial index (``index_size=0.5``, one
+    member draw), over one rank's share of three (its range of the edges,
+    the segments clipped to it), with every 97th edge's endpoints made to
+    coincide (kicks and coincident neighbours); then ``wide_edge_case``
+    at d=300 (f32, f64), d=520 and d=2100 (f64)."""
+    import torch
+
+    from wembed_tpu_torch.core import EmbedderOptions
+    from wembed_tpu_torch.core.step import Share
+    from wembed_tpu_torch.kernels.span_sparse import SpanIndex
+
+    rows = compare_edge_pass("girg100k_d2_step20", edge_case(impl), timed=True)
+    compare_edge_pass("girg100k_d2_step20_f64", edge_case(impl, dtype=torch.float64))
+    half = SpanIndex.build(impl.get_weights(), EmbedderOptions(embedding_dimension=2, index_size=0.5),
+                           *impl._span_edges())
+    members = half.draw_members(torch.Generator(device=impl.state.positions.device).manual_seed(3))
+    compare_edge_pass("girg100k_d2_step20_partial_index", edge_case(impl, index=half, in_index=members),
+                      modes=("fused", "correction"))
+    compare_edge_pass("girg100k_d2_step20_share_1_of_3", edge_case(impl, share=Share(1, 3, None)))
+    pos = impl.state.positions.clone()
+    t = impl._index.tensors(pos.device)
+    pick = torch.arange(0, t.edge_src.shape[0], 97, device=pos.device)
+    pos[t.edge_dst[pick]] = pos[t.edge_src[pick]]
+    coincident = compare_edge_pass("girg100k_d2_step20_coincident", edge_case(impl, positions=pos))
+    check(all(coincident[m]["coincident_neighbours"] > 0 for m in ("fused", "correction")),
+          "the coincident edge case counted no coincident neighbour")
+    for d, dtype, n in ((300, torch.float32, 4000), (300, torch.float64, 4000), (520, torch.float32, 4000),
+                        (2100, torch.float64, 1500)):
+        compare_edge_pass(f"n{n}_hub_d{d}_{str(dtype).split('.')[1]}", wide_edge_case(d, dtype, n=n))
+    return rows
+
+
+def plain_edge_pass_run(graph, single: dict, kernel_map: float) -> dict:
+    """Phase 10c: girg100k d=2 seed 1 to convergence through the API with
+    the edge pass's plain version in place of the kernel (the span step
+    calls ``edge_pass.edge_pass`` through its module), beside phase 10's
+    kernel run ``single``: iterations, MAP and coordinates, which must be
+    equal (the trajectory), and the losses each run tallies (the kernel
+    and the plain version sum them in different orders, so these may
+    differ in their last bits on equal coordinates).  The plain run must
+    launch no edge pass kernel."""
+    import numpy as np
+    import torch
+
+    from wembed_tpu_torch import api
+    from wembed_tpu_torch.kernels import edge_pass as ep
+
+    api.setSeed(1)
+    embedder = api.createEmbedder(graph, api.Options(embeddingDimension=2))
+    kernel = ep.edge_pass
+    launches = kernel.launches
+    ep.edge_pass = ep.edge_pass_reference
+    try:
+        t0 = time.perf_counter()
+        embedder.calculateEmbedding()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ep.edge_pass = kernel
+    impl = embedder.impl
+    loss = embedder.getLoss()
+    coords = impl.get_coordinates()
+    row = dict(
+        iterations=[single["iterations"], impl.iteration],
+        tallied_att_loss=[single["losses"][0], loss.attractive],
+        tallied_rep_loss=[single["losses"][1], loss.repulsive],
+        MAP=[kernel_map, map_only(graph.csr, coords, impl.get_weights())],
+        coords_bitwise=bool(np.array_equal(single["coords"], coords)), wall_s=[single["wall_s"], wall],
+    )
+    row["trajectory_equal"] = (row["coords_bitwise"] and row["iterations"][0] == row["iterations"][1]
+                               and row["MAP"][0] == row["MAP"][1])
+    print("edge_pass_trajectory " + json.dumps(row))
+    check(kernel.launches == launches, "the plain edge pass run launched the kernel")
+    check(row["trajectory_equal"], f"the plain edge pass run left the kernel run's trajectory: {row}")
+    check_finite(impl.state, "on the span path with the plain edge pass")
+    return row
+
+
 def span_breakdown(impl) -> dict:
     """Milliseconds of the parts of one span step at the current positions
     and windows, by CUDA events, and the host wall of whole steps."""
@@ -913,9 +1151,10 @@ def span_item_sizes(args, kw) -> dict:
 
 def counters():
     """The launch counter of each hand kernel's wrapper."""
-    from wembed_tpu_torch.kernels import fused_dense, span_sweep
+    from wembed_tpu_torch.kernels import edge_pass, fused_dense, span_sweep
 
-    return dict(fused_dense=fused_dense.fused_dense_forces, span_sweep=span_sweep.span_sweep)
+    return dict(fused_dense=fused_dense.fused_dense_forces, span_sweep=span_sweep.span_sweep,
+                edge_pass=edge_pass.edge_pass)
 
 
 def reset_launches() -> None:
@@ -1394,6 +1633,8 @@ def girg100k_d4(generators: dict, reference: dict, tmp: Path) -> dict:
     case = cells_sweep_case(impl)
     sweeps = dict(cells=compare_span("girg100k_d4_cells_step20", case, timed=True))
     sweeps["cells"]["layout"] = case["layout"]
+    edge_cells = compare_edge_pass("girg100k_d4_cells_step20", edge_case(impl), modes=("fused", "correction"),
+                                   timed=True)
     st = impl.state
     windows = SpanIndex.build(impl.get_weights(), layouts["windows"], graph.csr.edge_src, graph.csr.col_idx)
     sweeps["windows"] = compare_span("girg100k_d4_windows_step20", presized_case(
@@ -1420,7 +1661,7 @@ def girg100k_d4(generators: dict, reference: dict, tmp: Path) -> dict:
         **{f"{name}_sweep_share": runs[name]["profile"]["sweep_share"] for name in layouts},
     )
     print("phase13b " + json.dumps(summary))
-    return dict(sweeps=sweeps, runs=runs, resume=resume)
+    return dict(sweeps=sweeps, runs=runs, resume=resume, edge_cells=edge_cells)
 
 
 def partial_index_run(graph, tmp: Path) -> dict:
@@ -1529,7 +1770,7 @@ def kernels_a_replay(impl, steps: int = 5) -> dict:
     from torch.profiler import ProfilerActivity, profile, schedule
 
     names = ("fused_dense_kernel", "rows_kernel", "finalize_kernel", "span_sweep_kernel",
-             "span_reduce_kernel")
+             "span_reduce_kernel", "edge_pass_kernel", "edge_segment_kernel")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=2, active=steps, repeat=1)) as prof:
@@ -1615,7 +1856,8 @@ def step_graph_runs(graph10k, graph100k) -> dict:
         if kernel == "span_sweep":
             check(row["window_changes_graphed"] >= 1,
                   f"step graph {name}: no window change in {GRAPH_STEPS} steps")
-            check(replay["span_sweep_kernel"] == replay["span_reduce_kernel"] == 1,
+            check(replay["span_sweep_kernel"] == replay["span_reduce_kernel"] == 1
+                  and replay["edge_pass_kernel"] == replay["edge_segment_kernel"] == 1,
                   f"step graph {name}: {replay} a replay")
         else:
             check(replay["fused_dense_kernel"] == 1, f"step graph {name}: {replay} a replay")
@@ -2166,7 +2408,7 @@ def run_phases(kind, generators: dict) -> int:
     import torch
 
     from wembed_tpu_torch import api
-    from wembed_tpu_torch.kernels import _build, fused_dense, span_sweep
+    from wembed_tpu_torch.kernels import _build, edge_pass, fused_dense, span_sweep
 
     # ---- phase 2: build, one compiler per source, all started together;
     # compiled even where a library of the same sources exists (a benchmark
@@ -2181,6 +2423,10 @@ def run_phases(kind, generators: dict) -> int:
                 print("  " + line.strip())
     check_no_spills("fused_dense", infos["fused_dense"].log, "fused_dense_kernel")
     check_no_spills("span_sweep", infos["span_sweep"].log, "span_sweep_kernel")
+    edge_spills = {k: v for k, v in spills(infos["edge_pass"].log).items()
+                   if "edge_pass_kernel" in k or "edge_segment_kernel" in k}
+    check(len(edge_spills) == 4 and all(v == (0, 0) for v in edge_spills.values()),
+          f"edge_pass: ptxas reports {edge_spills}")
 
     # ---- phase 3: the dense kernel against its plain version
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2381,6 +2627,8 @@ def run_phases(kind, generators: dict) -> int:
     print("span_item_sizes " + json.dumps(span_item_sizes(case["args"], case["kw"])))
     del case
     compare_span("girg100k_d2_step20_k1", span_case(*at20, k=1), False)
+    # ---- phase 9c: the edge pass kernel against its plain version (d=2 here, d=4 below)
+    edge_d2 = edge_pass_cases_d2(impl)
     del embedder, impl, st, at20
     api.setSeed(1)
     embedder = api.createEmbedder(graph, api.Options(embeddingDimension=4))
@@ -2393,6 +2641,7 @@ def run_phases(kind, generators: dict) -> int:
         span_case(st.positions, impl._inv_w, impl._weights, impl._dg.colors, impl._index, impl.opts),
         timed=True,
     )
+    edge_d4 = compare_edge_pass("girg100k_d4_step20", edge_case(impl), timed=True)
     del embedder, impl, st
     compare_span("n20000_additive_d3", synthetic_span_case(20000, 3, additive=True, seed=5), False)
     compare_span("n20000_bipartite_d2", synthetic_span_case(20000, 2, bipartite=True, seed=6), False)
@@ -2417,11 +2666,13 @@ def run_phases(kind, generators: dict) -> int:
     torch.cuda.reset_peak_memory_stats()
     span_sweep.span_sweep.launches = 0
     span_sweep.span_sweep.launches_general = 0
+    edge_pass.edge_pass.launches = 0
     t0 = time.perf_counter()
     embedder.calculateEmbedding()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     span_launches = span_sweep.span_sweep.launches
+    edge_launches = edge_pass.edge_pass.launches
     state = impl.state
     iterations = state.iteration
     loss = embedder.getLoss()
@@ -2433,7 +2684,8 @@ def run_phases(kind, generators: dict) -> int:
     print(
         "main_path_span " + json.dumps(dict(
             graph="girg100k", n=n, m=m, dim=2, seed=1, iterations=iterations,
-            launches=span_launches, launches_general=span_general, growth_events=impl.growth_events,
+            launches=span_launches, launches_general=span_general, edge_pass_launches=edge_launches,
+            growth_events=impl.growth_events,
             shrink_events=impl._shrink_events, final_work_tiles=impl._index.w,
             final_overflow=overflow, att_loss=loss.attractive, rep_loss=loss.repulsive,
             total_loss=loss.total, reference_total_loss=ref_total, wall_s=wall,
@@ -2444,6 +2696,7 @@ def run_phases(kind, generators: dict) -> int:
     check(0 < iterations < 1000, f"span path did not converge before the cap ({iterations} iterations)")
     check(span_launches == iterations, f"{span_launches} sweep launches for {iterations} iterations")
     check(span_general == 0, f"the span main path launched the general sweep {span_general} times")
+    check(edge_launches == iterations, f"{edge_launches} edge pass launches for {iterations} iterations")
     check(overflow == 0, f"span path ended with overflow {overflow}")
     check_finite(state, "on the span path")
     check(loss.total <= LOSS_FACTOR * ref_total, f"span total loss {loss.total} > {LOSS_FACTOR} x {ref_total}")
@@ -2455,6 +2708,9 @@ def run_phases(kind, generators: dict) -> int:
     print("span_breakdown " + json.dumps(span_breakdown(impl)))
     print("profile_span " + json.dumps(profile_steps(impl)))
     del embedder, impl, state
+
+    # ---- phase 10c: the same run through the edge pass's plain version
+    plain_edge_pass_run(graph, single_span, flat["MAP"])
 
     # ---- phase 10b: the captured step against the eager one
     t10b = time.perf_counter()
@@ -2609,6 +2865,23 @@ def run_phases(kind, generators: dict) -> int:
             "bound_ms": girg_span["bound_ms"],
             "bound_by": girg_span["bound_by"],
             "library_ms": None,  # no PyTorch call computes the windowed sweep with its tallies
+        },
+        {
+            "name": "edge_pass",
+            "route": "cuda",
+            "source": "wembed_tpu_torch/csrc/edge_pass.cu",
+            # no Pallas kernel: the JAX package's span edge pass is plain jnp
+            "replaces": "wembed_tpu/kernels/span_sparse.py:2062",
+            "launches": edge_launches,
+            "girg100k_d2": {mode: general_timing(row) for mode, row in edge_d2.items()},
+            "girg100k_d4": {mode: general_timing(row) for mode, row in edge_d4.items()},
+            "girg100k_d4_cells": {mode: general_timing(row) for mode, row in d4["edge_cells"].items()},
+            "max_abs_err": edge_d2["fused"]["max_abs_err"],
+            "ms": edge_d2["fused"]["ms"],
+            "plain_ms": edge_d2["fused"]["plain_ms"],
+            "bound_ms": edge_d2["fused"]["bound_ms"],
+            "bound_by": edge_d2["fused"]["bound_by"],
+            "library_ms": None,  # no PyTorch call computes the masked edge pass with its tallies
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,9 @@ reads (built on the device, in place of the u8 matrix of
 
 The normal dense step does attraction and repulsion in one kernel
 (``kernels/fused_dense.py``), the span step in the sweep kernel and one
-edge pass (``kernels/span_sparse.py``).  ``attraction_forces`` serves the
-profiled step and the sampled one.  The JAX package's unfused
+edge pass (``kernels/span_sparse.py``).  ``attraction_forces``, the edge
+pass's attraction mode (``kernels/edge_pass.py``), serves the profiled
+step and the sampled one.  The JAX package's unfused
 ``dense_repulsion_forces`` has no counterpart: the profiled dense step
 runs the fused kernel with the attraction scale at 0 (``core/step.py``).
 """
@@ -20,7 +21,9 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import edge_pass as edges
 from ..kernels.fused_dense import adjacency_bits
+from .edge_geometry import edge_geometry, segment_sum
 from .options import EmbedderOptions
 from .state import DeviceGraph
 
@@ -39,31 +42,6 @@ def random_unit_vectors(
 
 def _weight_scaling(inv_w_a, inv_w_b, additive: bool):
     return inv_w_a + inv_w_b if additive else inv_w_a * inv_w_b
-
-
-def _segment_sum(values: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
-    """Per-vertex sums of src-sorted directed-edge rows, one segment per
-    CSR row: deterministic run to run (no atomics).  The JAX package's
-    cumsum difference (``csr_segment_sum``) works around a serialising TPU
-    scatter and is not ported."""
-    return torch.segment_reduce(values, "sum", offsets=row_ptr, axis=0)
-
-
-def _edge_geometry(positions: torch.Tensor, src: torch.Tensor, dst: torch.Tensor):
-    """(pos[dst] - pos[src], dist2) of the directed edges (src, dst), dist2
-    summed over dimensions in ascending order as the force kernels sum it,
-    so that ``dist2 > 0`` is their own coincidence test."""
-    return _edge_geometry_between(positions, positions, src, dst)
-
-
-def _edge_geometry_between(src_rows: torch.Tensor, dst_rows: torch.Tensor, src, dst):
-    """``_edge_geometry`` with the sources and destinations read from two
-    tables (a halo rank's own rows and its ext table)."""
-    diff = dst_rows[dst] - src_rows[src]
-    dist2 = torch.zeros_like(diff[:, 0])
-    for k in range(diff.shape[1]):
-        dist2 = dist2 + diff[:, k] * diff[:, k]
-    return diff, dist2
 
 
 def edge_share(row_ptr: torch.Tensor, num_edges: int, share):
@@ -102,26 +80,12 @@ def attraction_forces(
     if e == 0:
         return torch.zeros_like(positions), torch.zeros((), dtype=dtype, device=positions.device)
     lo, hi, row_ptr = edge_share(dg.row_ptr, e, share)
-    src, dst = dg.edge_src[lo:hi], dg.edge_dst[lo:hi]
-    diff, dist2 = _edge_geometry(positions, src, dst)
-    iw = inv_w.to(dtype)
     kicks = random_unit_vectors(generator, e, d, dtype)[lo:hi]
-    force_e, loss = edge_attraction(diff, dist2, iw[src], iw[dst], opts, kicks)
-    return _segment_sum(force_e, row_ptr), loss
-
-
-def edge_attraction(diff, dist2, iw_src, iw_dst, opts: EmbedderOptions, kicks):
-    """(force a directed edge (E, d), attraction loss) of edges with
-    geometry (``diff``, ``dist2``, ``_edge_geometry``) and inverse weights:
-    the hinge pull, or the edge's kick where its endpoints coincide."""
-    dist = torch.sqrt(dist2)
-    ws = _weight_scaling(iw_src, iw_dst, opts.additive_weights)
-    L = float(opts.edge_length)
-    active = dist * ws > L
-    coeff = torch.where(active, opts.attraction_scale * ws / torch.clamp_min(dist, 1e-30), 0.0)
-    force_e = torch.where((dist2 > 0)[:, None], coeff[:, None] * diff, kicks)
-    loss = torch.sum(torch.where(active, dist - L / ws, 0.0))
-    return force_e, loss
+    out = edges.edge_pass(
+        "attraction", positions, inv_w, dg.edge_src[lo:hi], dg.edge_dst[lo:hi], row_ptr, opts,
+        kicks=kicks,
+    )
+    return out.force, out.att_loss
 
 
 def coincident_edge_counts(positions: torch.Tensor, dg: DeviceGraph) -> torch.Tensor:
@@ -129,9 +93,9 @@ def coincident_edge_counts(positions: torch.Tensor, dg: DeviceGraph) -> torch.Te
     the pairs that ``attraction_forces`` kicks."""
     if dg.edge_src.shape[0] == 0:
         return torch.zeros((dg.n,), dtype=torch.int32, device=positions.device)
-    _, dist2 = _edge_geometry(positions, dg.edge_src, dg.edge_dst)
+    _, dist2 = edge_geometry(positions, dg.edge_src, dg.edge_dst)
     # counts summed as floats (segment_reduce takes no integers): exact below 2^24
-    return _segment_sum((dist2 <= 0).to(dist2.dtype), dg.row_ptr).to(torch.int32)
+    return segment_sum((dist2 <= 0).to(dist2.dtype), dg.row_ptr).to(torch.int32)
 
 
 def _edge_membership(dg: DeviceGraph, src_ids: torch.Tensor, dst_ids: torch.Tensor) -> torch.Tensor:

@@ -68,6 +68,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core import edge_geometry as edges
 from ..core import forces
 from ..core import step as step_mod
 from ..core.options import EmbedderOptions
@@ -281,14 +282,14 @@ class HaloEmbedder(MultiChipEmbedder):
             return torch.zeros_like(pos_l), zero, torch.zeros((R,), dtype=torch.int32, device=self.device)
         kicks = forces.random_unit_vectors(generator, e_all, d, dtype)
         k = rp.esrc.shape[0]
-        diff, dist2 = forces._edge_geometry_between(pos_l, ext, rp.esrc, rp.edst_ext)
+        diff, dist2 = edges.edge_geometry_between(pos_l, ext, rp.esrc, rp.edst_ext)
         iw = self._inv_w.to(dtype)
-        force_e, loss = forces.edge_attraction(
+        force_e, loss = edges.edge_attraction(
             diff, dist2, iw[rp.esrc + rp.r0], iw[rp.edst], self.opts,
             kicks[rp.edge_lo : rp.edge_lo + k],
         )
-        coincident = forces._segment_sum((dist2 <= 0).to(dtype), rp.row_ptr).to(torch.int32)
-        return forces._segment_sum(force_e, rp.row_ptr), loss, coincident
+        coincident = edges.segment_sum((dist2 <= 0).to(dtype), rp.row_ptr).to(torch.int32)
+        return edges.segment_sum(force_e, rp.row_ptr), loss, coincident
 
     def _repulsion(self, state: EmbedState, pos_full: torch.Tensor, in_index):
         """This rank's share of the repulsion pass: (force, zero_count,

@@ -19,11 +19,12 @@ projected-sort index, snn.cpp:97-160):
   3. ``kernels/span_sweep.py``: the sweep of every window (the CUDA kernel),
      in work items of at most ``WORK_ITEM_TILES`` tiles that the index cuts
      from its windows (``SpanIndex.work_items``).
-  4. One pass over the directed edges: attraction, and the removal of the
-     repulsion that the sweep applied to graph neighbours (the reference
-     never repels neighbours, NewWEmbedEmbedder.cpp:328).  Its inclusion
-     test repeats the sweep's own tests in the same f32 operations, so the
-     removal cancels exactly what the sweep added.
+  4. One pass over the directed edges (``kernels/edge_pass.py``, the
+     CUDA kernel ``csrc/edge_pass.cu``): attraction, and the removal of
+     the repulsion that the sweep applied to graph neighbours (the
+     reference never repels neighbours, NewWEmbedEmbedder.cpp:328).  Its
+     inclusion test repeats the sweep's own tests in the same f32
+     operations, so the removal cancels exactly what the sweep added.
 
 A partial index (``index_size < 1``, the reference's IndexSize,
 NewWEmbedEmbedder.cpp:271-285) inserts only a sample of the members each
@@ -64,7 +65,8 @@ import numpy as np
 import torch
 
 from ..core.candidates import _principal_axes2, doubling_weight_buckets
-from ..core.forces import _edge_geometry, _segment_sum, edge_share, random_unit_vectors
+from ..core.forces import edge_share, random_unit_vectors
+from . import edge_pass as edges
 from .span_sweep import Q as _Q, ST as _ST, span_sweep, work_items
 
 _GROUP_MIN = 2048  # merge doubling classes until a group has this many
@@ -756,68 +758,6 @@ def _sweep(s, idx, opts, items: torch.Tensor | None = None, share=None, sweep=No
     )
 
 
-class _EdgeTerms(NamedTuple):
-    diff: torch.Tensor  # (E, d) pos[dst] - pos[src]
-    dist2: torch.Tensor
-    ws: torch.Tensor
-    included: torch.Tensor  # the sweep counted (src, dst) as a candidate
-    active_r: torch.Tensor  # ... and repelled it
-    l_over_ws: torch.Tensor  # L/ws as the sweep formed it
-
-
-def _edge_range(idx: SpanIndex, device, share):
-    """(lo, hi, row_ptr): all directed edges, or the share's range
-    (``core/forces.py:edge_share``)."""
-    t = idx.tensors(device)
-    return edge_share(t.edge_row_ptr, t.edge_src.shape[0], share)
-
-
-def _edge_terms(
-    positions, inv_w, colors, s, idx, opts, lo: int, hi: int,
-    in_index: torch.Tensor | None = None,
-) -> _EdgeTerms:
-    """Per directed edge (src, dst) of edges [lo, hi): the distance, the
-    weight scale, and whether the sweep counted and repelled the pair.
-    The sweep's query is src and its member dst, so every test repeats the
-    sweep's own f32 operations: dist2 over dimensions in ascending k, the
-    radius test as lw_src^2 * bm2_dst, the colour filter, under a partial
-    index dst's membership (``wembed_tpu/core/candidates.py:836-837``), and
-    the layout's coverage of dst by src's block (``s.covers``: a window
-    of ``SpanStructures``, or a cell window and the block's capacity of
-    ``span_compact.CellStructures``)."""
-    t = idx.tensors(positions.device)
-    dtype = positions.dtype
-    src, dst = t.edge_src[lo:hi], t.edge_dst[lo:hi]
-    diff, dist2 = _edge_geometry(positions, src, dst)
-    iw = inv_w.to(dtype)
-    iw_s, iw_d = iw[src], iw[dst]
-    ws = iw_s + iw_d if opts.additive_weights else iw_s * iw_d
-    lw = s.lwpow[src]
-    included = (
-        (dist2 <= (lw * lw) * t.edge_bm2[lo:hi].to(dtype))
-        & s.covers(src, dst)
-        & (colors[src] != colors[dst])
-    )
-    if in_index is not None:
-        included = included & in_index[dst]
-    L = float(opts.edge_length)
-    active_r = included & (dist2 * (ws * ws) <= L * L) & (dist2 > 0)
-    if opts.additive_weights:
-        l_over_ws = L / ws
-    else:
-        l_over_ws = (L * (1.0 / iw_s)) * (1.0 / iw_d)
-    return _EdgeTerms(diff, dist2, ws, included, active_r, l_over_ws)
-
-
-def _correction_tallies(e: _EdgeTerms, dist: torch.Tensor, row_ptr: torch.Tensor):
-    """(loss, count, per-vertex zero counts) of the neighbour pairs the sweep
-    included, to take back from the sweep's totals."""
-    loss = torch.sum(torch.where(e.active_r, e.l_over_ws - dist, 0.0))
-    count = torch.sum(e.included, dtype=torch.int64)
-    zero = _segment_sum((e.included & ~(e.dist2 > 0)).to(dist.dtype), row_ptr)
-    return loss, count, zero.to(torch.int32)
-
-
 def span_fused_forces(
     positions: torch.Tensor,
     inv_w: torch.Tensor,
@@ -833,8 +773,8 @@ def span_fused_forces(
     share=None,
     sweep=None,
 ):
-    """The sweep plus ONE edge pass doing attraction and the neighbour
-    correction together: both act along pos_dst - pos_src with a scalar
+    """The sweep plus ONE edge pass (``edge_pass.edge_pass``, mode
+    "fused") doing attraction and the neighbour correction together: both act along pos_dst - pos_src with a scalar
     coefficient a directed edge, so they share one per-vertex segment sum.
     Attraction pulls src toward dst past the hinge, dist * ws > L
     (NewWEmbedEmbedder.cpp:188-219); removing the sweep's repulsion of a
@@ -856,29 +796,23 @@ def span_fused_forces(
     if structures is None:
         structures = idx.structures(positions, inv_w, weights, colors, opts, blk_t, in_index)
     force_k, rep_loss, rep_count, zero_count = _sweep(structures, idx, opts, items, share, sweep)
-    lo, hi, row_ptr = _edge_range(idx, positions.device, share)
-    e = _edge_terms(positions, inv_w, colors, structures, idx, opts, lo, hi, in_index)
-    L = float(opts.edge_length)
-    dist = torch.sqrt(e.dist2)
-    inv_dist = 1.0 / torch.clamp_min(dist, 1e-30)
-    act_a = dist * e.ws > L
-    ca = torch.where(act_a, opts.attraction_scale * e.ws * inv_dist, 0.0)
-    att_loss = torch.sum(torch.where(act_a, dist - L / e.ws, 0.0))
-    cr = torch.where(e.active_r, opts.repulsion_scale * e.ws * inv_dist, 0.0)
-    net_e = (ca + cr)[:, None] * e.diff
+    t = idx.tensors(positions.device)
+    lo, hi, row_ptr = edge_share(t.edge_row_ptr, t.edge_src.shape[0], share)
     # kicks are drawn every step and selected by mask, so that no host
     # branch (and no synchronisation) decides whether any edge needs one
     kicks = random_unit_vectors(generator, idx.edge_src.shape[0], d, positions.dtype)
-    net_e = torch.where((e.dist2 > 0)[:, None], net_e, kicks[lo:hi])
-    force = force_k + _segment_sum(net_e, row_ptr)
-    loss_c, count_c, zero_c = _correction_tallies(e, dist, row_ptr)
+    e = edges.edge_pass(
+        "fused", positions, inv_w, t.edge_src[lo:hi], t.edge_dst[lo:hi], row_ptr, opts,
+        kicks=kicks[lo:hi], structures=structures, colors=colors, bm2=t.edge_bm2[lo:hi],
+        in_index=in_index, force=force_k, zero_count=zero_count,
+    )
     return (
-        force,
-        att_loss,
-        rep_loss - loss_c,
-        rep_count - count_c,
+        e.force,
+        e.att_loss,
+        rep_loss - e.corr_loss,
+        rep_count - e.corr_count,
         structures.overflow,
-        zero_count - zero_c,
+        e.zero_count,
     )
 
 
@@ -905,10 +839,10 @@ def span_repulsion_forces(
     if structures is None:
         structures = idx.structures(positions, inv_w, weights, colors, opts, blk_t, in_index)
     force_k, loss, count, zero_count = _sweep(structures, idx, opts, items)
-    lo, hi, row_ptr = _edge_range(idx, positions.device, None)
-    e = _edge_terms(positions, inv_w, colors, structures, idx, opts, lo, hi, in_index)
-    dist = torch.sqrt(e.dist2)
-    cr = torch.where(e.active_r, opts.repulsion_scale * e.ws * (1.0 / dist), 0.0)
-    force = force_k + _segment_sum(cr[:, None] * e.diff, row_ptr)
-    loss_c, count_c, zero_c = _correction_tallies(e, dist, row_ptr)
-    return force, loss - loss_c, count - count_c, structures.overflow, zero_count - zero_c
+    t = idx.tensors(positions.device)
+    e = edges.edge_pass(
+        "correction", positions, inv_w, t.edge_src, t.edge_dst, t.edge_row_ptr, opts,
+        structures=structures, colors=colors, bm2=t.edge_bm2, in_index=in_index,
+        force=force_k, zero_count=zero_count,
+    )
+    return e.force, loss - e.corr_loss, count - e.corr_count, structures.overflow, e.zero_count
