@@ -12,8 +12,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   2. build the CUDA kernels from ``wembed_tpu_torch/csrc`` (one nvcc per
      source) and the layered path's host label propagation (g++), all
      started together, compiled even where a library of the same sources
-     exists; print the kernels' registers and spills, and fail on any
-     spill at d <= 4 and on any in the edge pass's four kernels;
+     exists; print the kernels' registers and spills (and a
+     ``ptxas_span_sweep`` line: the fast sweep's registers and spills at
+     each d), and fail on any spill at d <= 4 and on any in the edge pass's
+     four kernels;
   3. hold the fused force kernel against its plain PyTorch version on the
      card: girg10k d=2 with degree weights at positions after 20 steps of
      a seeded run (timed), n = 16384, the largest dense size (timed),
@@ -49,8 +51,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      girg100k d=2 at positions after 20 steps of a seeded run (timed; then
      with one tile a work item, and timed at other item sizes), girg100k
      d=4 after 20 steps (timed), and synthetic cases with additive weights
-     at d=3, a bipartite colouring, coincident points at d=4 and starved
-     windows;
+     at d=3, a bipartite colouring, coincident points at d=4, starved
+     windows and, at d = 2, 4 and 8, an adversarial case for the tensor-core
+     prefilter (members on the radius edge of a query at coordinates near
+     1e4, coincident and far members, blocks and tiles that end in padding
+     records); every fast-kernel case also prints a ``prefilter`` line (the
+     kernel's own count of the pairs its prefilter passed, over the pairs
+     swept, beside the candidates' share, and the largest |position|), and
+     fails unless the prefilter passed at least the candidates;
  9c. hold the span edge pass kernel against its plain version on the
      card, in its three modes (fused, correction, attraction): forces,
      zero counts and counted neighbours bitwise equal, losses within
@@ -271,6 +279,25 @@ def spills(log: str) -> dict:
         if m and name:
             out[name] = (int(m.group(1)), int(m.group(2)))
     return out
+
+
+def ptxas_usage(log: str, kernel: str) -> dict:
+    """{d: {registers, spill_stores, spill_loads}} of ``kernel<d>`` from
+    ptxas -v (entries mangled as ...kernelILi<d>E...)."""
+    import re
+
+    out, d = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*" + kernel + r"ILi(\d+)E", line)
+        if m or "Function properties for" in line:
+            d = int(m.group(1)) if m else None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and d is not None:
+            out.setdefault(d, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and d is not None:
+            out.setdefault(d, {})["registers"] = int(m.group(1))
+    return dict(sorted(out.items()))
 
 
 def check_no_spills(name: str, log: str, kernel: str) -> None:
@@ -729,6 +756,7 @@ def span_case(positions, inv_w, weights, colors, idx, opts, k=None):
         kw=dict(dim=idx.d, L=opts.edge_length, rep_scale=opts.repulsion_scale,
                 additive=opts.additive_weights, items=items),
         n=idx.n, tiles=idx.w, items=int(items.shape[0]), overflow=int(s.overflow), need=s.need,
+        max_abs_pos=float(positions.abs().max()),
     )
 
 
@@ -781,6 +809,119 @@ def sized_span_case(tensors, idx, opts):
     return span_case(*tensors, idx, opts)
 
 
+def radius_edge(q, s, thr, steps):
+    """Members ``s`` (f32, placed within a few hundred f32 steps of the
+    radius) moved along their largest axis of difference from their
+    queries ``q`` to the last f32 step at which the exact test's squared
+    distance is within ``thr``, then ``steps`` further steps out (beyond
+    the radius) or, where negative, in."""
+    import numpy as np
+
+    s = s.copy()
+    rows = np.arange(s.shape[0])
+    axis = np.argmax(np.abs(s - q), axis=1)
+    out = np.where(s[rows, axis] >= q[rows, axis], np.inf, -np.inf).astype(np.float32)
+    steps = np.broadcast_to(np.asarray(steps), rows.shape)
+
+    def dist2(x):
+        diff, acc = q - x, np.zeros(x.shape[0], np.float32)
+        for k in range(x.shape[1]):
+            acc = acc + diff[:, k] * diff[:, k]
+        return acc
+
+    for _ in range(400):  # in until within the radius
+        inside = dist2(s) <= thr
+        if inside.all():
+            break
+        s[rows, axis] = np.where(inside, s[rows, axis], np.nextafter(s[rows, axis], -out))
+    for _ in range(400):  # out while the next step stays within it
+        trial = s.copy()
+        trial[rows, axis] = np.nextafter(s[rows, axis], out)
+        grow = dist2(trial) <= thr
+        if not grow.any():
+            break
+        s[grow] = trial[grow]
+    for i in range(int(np.abs(steps).max(initial=0))):
+        move = np.abs(steps) > i
+        toward = np.where(steps > 0, out, -out)
+        s[rows, axis] = np.where(move, np.nextafter(s[rows, axis], toward), s[rows, axis])
+    return s
+
+
+def adversarial_span_case(d: int, seed: int) -> dict:
+    """Sweep inputs built directly: three query blocks of a compact cloud
+    about a corner 1e4 from the origin, the last ending in 100 padding slots
+    (+1e15, radius factor 0), against six member tiles of one row, each
+    block's window: members on the radius edge of a query (the last f32
+    step within it, or one step beyond), coincident with one, of the same
+    colour as one, far away, and the last tile ending in 90 padding members
+    (-1e15, bm2 0; 20 of them at +1e15, on the padding queries)."""
+    import numpy as np
+    import torch
+
+    from wembed_tpu_torch.kernels import span_sweep
+
+    rng = np.random.default_rng(seed)
+    nb, tiles, pad_q, pad_s = 3, 6, 100, 90
+    nq, ns = nb * span_sweep.Q, tiles * span_sweep.ST
+    corner = 1e4 * rng.choice([-1.0, 1.0], d)
+    qpos = (corner + rng.normal(size=(nq, d)) * 8.0).astype(np.float32)
+    lw2 = ((rng.pareto(1.5, nq) + 1.0) ** 2).astype(np.float32)
+    bm2 = ((rng.pareto(1.5, ns) + 1.0) ** 2).astype(np.float32)
+    partner = rng.integers(0, nq - pad_q, ns)
+    thr = lw2[partner] * bm2
+    direction = rng.normal(size=(ns, d))
+    direction /= np.linalg.norm(direction, axis=1, keepdims=True)
+    spos = (qpos[partner] + direction * np.sqrt(thr.astype(np.float64))[:, None]).astype(np.float32)
+    spos = radius_edge(qpos[partner], spos, thr, (rng.random(ns) < 0.5).astype(int))
+    coincident = rng.random(ns) < 0.08
+    spos[coincident] = qpos[partner[coincident]]
+    far = rng.random(ns) < 0.08
+    spos[far] = (corner + rng.normal(size=(int(far.sum()), d)) * 400.0).astype(np.float32)
+    qcol = np.arange(nq, dtype=np.int32)
+    scol = np.arange(nq, nq + ns, dtype=np.int32)
+    same = rng.random(ns) < 0.05
+    scol[same] = qcol[partner[same]]
+    qpos[nq - pad_q:], lw2[nq - pad_q:], qcol[nq - pad_q:] = 1e15, 0.0, -2
+    spos[ns - pad_s:], bm2[ns - pad_s:], scol[ns - pad_s:] = -1e15, 0.0, -3
+    spos[ns - pad_s: ns - pad_s + 20] = 1e15
+    wq, ws = rng.pareto(2.0, nq) + 1.0, rng.pareto(2.0, ns) + 1.0
+
+    def rec(pos, w, radius):
+        return np.concatenate([pos, 1.0 / w[:, None], radius[:, None], w[:, None]], axis=1)
+
+    dev = torch.device("cuda")
+    blk_t = np.full((nb, 1), tiles, np.int32)
+    items = torch.as_tensor(span_sweep.work_items(blk_t), device=dev)
+    args = tuple(torch.tensor(a, device=dev) for a in (
+        rec(qpos, wq, lw2).astype(np.float32), qcol, rec(spos, ws, bm2).astype(np.float32), scol,
+        blk_t, np.zeros((nb, 1), np.int32), np.zeros(1, np.int32)))
+    return dict(args=args, kw=dict(dim=d, L=1.0, rep_scale=1.0, additive=False, items=items),
+                n=nq - pad_q, tiles=tiles, items=int(items.shape[0]), overflow=0,
+                max_abs_pos=float(np.abs(qpos[: nq - pad_q]).max()))
+
+
+def prefilter_share(args, kw) -> dict:
+    """The fast sweep's prefilter on these inputs: the pairs swept, the pairs
+    it passed (the kernel's own count) and the candidates, each also as a
+    share of the pairs swept."""
+    import torch
+
+    from wembed_tpu_torch.kernels import span_sweep
+
+    dev = args[0].device
+    span_sweep.count_prefilter_passes(True, dev)
+    out = span_sweep.span_sweep(*args, **kw)
+    passes = span_sweep.prefilter_passes(dev)
+    span_sweep.count_prefilter_passes(False, dev)
+    pairs = int(kw["items"][:, 3].sum()) * span_sweep.Q * span_sweep.ST
+    candidates = int(out[2].sum())
+    torch.cuda.synchronize()
+    return dict(pairs=pairs, prefilter_passes=passes, prefilter_pass_rate=passes / pairs,
+                candidates=candidates, candidate_share=candidates / pairs,
+                passes_per_candidate=passes / max(candidates, 1))
+
+
 def compare_span(name: str, case: dict, timed: bool) -> dict:
     """The span sweep kernel against its plain version on the same CUDA
     tensors; some pair must be a candidate."""
@@ -818,12 +959,20 @@ def compare_span(name: str, case: dict, timed: bool) -> dict:
         row["bound_ms"], row["bound_by"] = bound(
             flop, nbytes(*args, kw["items"], *out), f64=dtype == torch.float64
         )
+    if not general:
+        row.update(prefilter_share(args, kw), max_abs_pos=case.get("max_abs_pos"))
+        print("prefilter " + json.dumps(dict(case=name, **{k: row[k] for k in (
+            "pairs", "prefilter_passes", "prefilter_pass_rate", "candidates", "candidate_share",
+            "passes_per_candidate", "max_abs_pos")})))
     print("compare_span " + json.dumps(row))
     check(bool(torch.equal(c_k, c_p)), f"{name}: candidate counts differ")
     check(bool(torch.equal(z_k, z_p)), f"{name}: zero counts differ")
     check(ok_force, f"{name}: forces differ by up to {err} (max|force| {scale})")
     check(losses_agree(loss_k, loss_p, dtype), f"{name}: loss {loss_k} != {loss_p}")
     check(int(c_p.sum()) > 0, f"{name}: no candidate pairs")
+    if not general:
+        check(row["prefilter_passes"] >= row["candidates"],
+              f"{name}: the prefilter passed {row['prefilter_passes']} pairs for {row['candidates']} candidates")
     return row
 
 
@@ -1086,6 +1235,13 @@ def span_breakdown(impl) -> dict:
              additive=impl.opts.additive_weights),
     )
     items = impl._items
+    if st.positions.dtype == torch.float32 and impl._index.d <= 8:
+        parts["prefilter"] = dict(
+            prefilter_share((s.qrec, s.qcol, s.srec, s.scol, s.blk_t, s.start_tile, t.tile_off),
+                            dict(dim=impl._index.d, L=impl.opts.edge_length,
+                                 rep_scale=impl.opts.repulsion_scale,
+                                 additive=impl.opts.additive_weights, items=items)),
+            max_abs_pos=float(st.positions.abs().max()))
     parts.update(work_tiles=impl._index.w, blocks=int(block_tiles.shape[0]),
                  max_block_tiles=int(block_tiles.max()), mean_block_tiles=float(block_tiles.mean()),
                  items=int(items.shape[0]), max_item_tiles=int(items[:, 3].max()))
@@ -2422,6 +2578,7 @@ def run_phases(kind, generators: dict) -> int:
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print("  " + line.strip())
     check_no_spills("fused_dense", infos["fused_dense"].log, "fused_dense_kernel")
+    print("ptxas_span_sweep " + json.dumps(ptxas_usage(infos["span_sweep"].log, "span_sweep_kernel")))
     check_no_spills("span_sweep", infos["span_sweep"].log, "span_sweep_kernel")
     edge_spills = {k: v for k, v in spills(infos["edge_pass"].log).items()
                    if "edge_pass_kernel" in k or "edge_segment_kernel" in k}
@@ -2649,6 +2806,9 @@ def run_phases(kind, generators: dict) -> int:
     check(coinc["zero_sum"][0] > 0, "the coincident span case produced no coincident pairs")
     starved = compare_span("n20000_starved_d2", synthetic_span_case(20000, 2, starved=True, seed=8), False)
     check(starved["overflow"] > 0, "the starved case did not truncate its windows")
+    for d in (2, 4, 8):  # the prefilter's radius edge, large coordinates, padding records
+        adv = compare_span(f"adversarial_d{d}", adversarial_span_case(d, 40 + d), False)
+        check(adv["zero_sum"][0] > 0, f"adversarial_d{d}: no coincident candidates")
 
     # ---- phase 9b: the general sweep (f32 at d > 8, f64)
     for d, dtype in ((16, None), (33, None), (2, f64), (16, f64)):
@@ -2859,6 +3019,8 @@ def run_phases(kind, generators: dict) -> int:
             "launches_resumed_cells": d4["resume"]["launches_after_checkpoint"],
             "general": {k: general_timing(v) for k, v in general_span.items()},
             "girg100k_d4": {k: general_timing(v) for k, v in d4["sweeps"].items()},
+            "prefilter_pass_rate": girg_span["prefilter_pass_rate"],
+            "candidate_share": girg_span["candidate_share"],
             "max_abs_err": girg_span["max_abs_err"],
             "ms": girg_span["ms"],
             "plain_ms": girg_span["plain_ms"],

@@ -36,6 +36,12 @@ the plain PyTorch version, for CPU tensors (f32 or f64).  A contiguous
 slice of the work items sweeps exactly those items' tiles: blocks without
 an item in the slice get zeros.  That slice is one rank's share of the
 replicated multi-device step.
+
+The fast kernel rejects most pairs with a 3xTF32 tensor-core prefilter
+before its exact test (the derivation of its margin heads the CUDA file).
+``span_prefilter_reference`` emulates that prefilter in plain PyTorch for
+the tests; ``count_prefilter_passes`` and ``prefilter_passes`` read the
+kernel's own count of the pairs it let through.
 """
 
 from __future__ import annotations
@@ -51,6 +57,10 @@ Q = 256  # query slots per block
 ST = 256  # members per tile
 WORK_ITEM_TILES = 4  # K: tiles of the longest work item (chosen on an H100, PERF.md)
 _REFERENCE_PAIRS = 1 << 22  # (tile, slot, member) elements per chunk of the plain version
+# the fast kernel's prefilter (csrc/span_sweep.cu: kMarginRel, kMarginAbs, kNormCap)
+PREFILTER_MARGIN_REL = 2.0**-14
+PREFILTER_MARGIN_ABS = 2.0**-100
+PREFILTER_NORM_CAP = 2.0**110
 
 
 def _work_tiles(blk_t: torch.Tensor, start_tile: torch.Tensor, tile_off: torch.Tensor):
@@ -179,6 +189,63 @@ def span_sweep_reference(
     )
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 stored mantissa bits), to nearest with
+    ties away from zero: the kernel's integer rounding."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _prefilter_rows(t: torch.Tensor, radius: torch.Tensor, query: bool, depth: int):
+    """Split prefilter rows (big, small), (n, depth) f32, of centred
+    positions ``t`` (n, d) f32 and radius factors ``radius`` (n,): queries
+    [t, N, 1, |lw^2|], members [-2t, 1, N, -fl(|bm2| (1 + EPS))]."""
+    n = torch.zeros(t.shape[0], dtype=torch.float64)
+    for k in range(t.shape[1]):  # fmaf(t, t, n), emulated in f64
+        n = (t[:, k].double() * t[:, k].double() + n).float().double()
+    norm = (n * (1.0 - PREFILTER_MARGIN_REL) - 0.5 * PREFILTER_MARGIN_ABS).float()
+    norm = torch.where(n < PREFILTER_NORM_CAP, norm, float("-inf"))[:, None]
+    one = torch.ones_like(norm)
+    if query:
+        cols = [t, norm, one, radius.abs()[:, None]]
+    else:
+        cols = [-2.0 * t, one, norm, -(radius.abs() * (1.0 + PREFILTER_MARGIN_REL))[:, None]]
+    rows = torch.cat(cols + [torch.zeros((t.shape[0], depth - t.shape[1] - 3))], dim=1)
+    big = _tf32(rows)
+    return big, _tf32(rows - big)
+
+
+def span_prefilter_reference(qrec: torch.Tensor, srec: torch.Tensor, *, dim: int) -> torch.Tensor:
+    """Plain emulation of the fast kernel's tensor-core prefilter, used by
+    tests: the (Q, M) bool mask of the pairs it passes for one query block
+    ``qrec`` (Q, d + 3) against members ``srec`` (M, d + 3), f32.  The
+    centre is the midpoint of the bounding box of the queries with a
+    positive radius factor and finite positions; each row [q - c, N, 1,
+    |lw^2|] and [-2(s - c), 1, N, -|bm2|(1 + EPS)] is split into TF32
+    halves, the three products small x big, big x small, big x big are
+    accumulated in f32 (exact products, one order of the sums that the
+    kernel's bound covers), and a pair is rejected when the sum exceeds 0.
+    It never rejects a pair that the exact test accepts; the kernel's margin
+    bounds its own error the same way."""
+    d = dim
+    q, s = qrec.to(torch.float32), srec.to(torch.float32)
+    kk = 4 if d + 3 <= 4 else 8
+    depth = kk * -(-(d + 3) // kk)
+    real = (q[:, d + 1] > 0) & torch.isfinite(q[:, :d]).all(dim=1)
+    if bool(real.any()):
+        lo, hi = q[real, :d].amin(dim=0), q[real, :d].amax(dim=0)
+        c = 0.5 * lo + 0.5 * hi
+    else:
+        c = torch.zeros(d, dtype=torch.float32)
+    qb, qs = _prefilter_rows(q[:, :d] - c, q[:, d + 1], True, depth)
+    sb, ss = _prefilter_rows(s[:, :d] - c, s[:, d + 1], False, depth)
+    acc = torch.zeros((q.shape[0], s.shape[0]), dtype=torch.float32)
+    for a, b in ((qs, sb), (qb, ss), (qb, sb)):  # small x big, big x small, then big x big
+        for k in range(depth):  # TF32 x TF32 products are exact in f64, then in f32
+            acc = acc + (a[:, k, None].double() * b[None, :, k].double()).float()
+    return ~(acc > 0)
+
+
 def sweep_outputs(nq: int, dim: int, dtype: torch.dtype, device) -> tuple[torch.Tensor, ...]:
     """Empty outputs of a sweep of ``nq`` query slots: (force (nq, dim),
     loss (nq,), count (nq,) int32, zero (nq,) int32)."""
@@ -203,6 +270,10 @@ def _configure(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, p, p, p, i, i, i, i, i, d, d, i, p, p, p, p, p, i, p,
     ]
     lib.wembed_span_sweep_general.restype = i
+    lib.wembed_span_sweep_count_passes.argtypes = [i, i]
+    lib.wembed_span_sweep_count_passes.restype = i
+    lib.wembed_span_sweep_passes.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), i]
+    lib.wembed_span_sweep_passes.restype = i
 
 
 def _check(qrec, qcol, srec, scol, blk_t, start_tile, tile_off, items, dim):
@@ -298,3 +369,30 @@ def span_sweep(
 
 span_sweep.launches = 0  # kernel launches, both kernels; the plain version is not counted
 span_sweep.launches_general = 0  # of which the general kernel's
+
+
+def _counter_call(fn, device: torch.device, *args) -> None:
+    """Calls the library's pass-counter function ``fn`` for the CUDA
+    ``device`` after the device's queued work; raises on a CUDA error."""
+    torch.cuda.synchronize(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    lib = _build.load("span_sweep", _configure)
+    rc = getattr(lib, fn)(*args, index)
+    if rc != 0:
+        msg = lib.wembed_span_sweep_error_string(rc).decode()
+        raise RuntimeError(f"{fn} failed: {msg} (cudaError {rc})")
+
+
+def count_prefilter_passes(enable: bool, device: torch.device) -> None:
+    """Start (or stop) counting the pairs that the fast kernel's prefilter
+    passes on the CUDA ``device``, from zero; a measurement, off on the
+    main path.  Synchronises the device."""
+    _counter_call("wembed_span_sweep_count_passes", device, int(bool(enable)))
+
+
+def prefilter_passes(device: torch.device) -> int:
+    """The pairs the fast kernel's prefilter passed on ``device`` since
+    ``count_prefilter_passes(True, device)``.  Synchronises the device."""
+    out = ctypes.c_ulonglong(0)
+    _counter_call("wembed_span_sweep_passes", device, ctypes.byref(out))
+    return int(out.value)
