@@ -13,9 +13,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      source) and the layered path's host label propagation (g++), all
      started together, compiled even where a library of the same sources
      exists; print the kernels' registers and spills (and a
-     ``ptxas_span_sweep`` line: the fast sweep's registers and spills at
-     each d), and fail on any spill at d <= 4 and on any in the edge pass's
-     four kernels;
+     ``ptxas_span_sweep`` and ``ptxas_edge_pass`` lines: the fast
+     kernels' registers and spills at each d), and fail on any spill of
+     the dense and sweep fast kernels in f32 at d <= 4 and on any in the
+     edge pass (every instantiation, f32 and f64);
   3. hold the fused force kernel against its plain PyTorch version on the
      card: girg10k d=2 with degree weights at positions after 20 steps of
      a seeded run (timed), n = 16384, the largest dense size (timed),
@@ -62,11 +63,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
  9c. hold the span edge pass kernel against its plain version on the
      card, in its three modes (fused, correction, attraction): forces,
      zero counts and counted neighbours bitwise equal, losses within
-     LOSS_RTOL; girg100k d=2 after 20 steps (timed), in f64, with a
-     partial index, over one rank's share of three and with coincident
-     endpoints; rows wider than a CTA (d=300 in f32 and f64, d=520, d=2100
-     in f64) with a vertex of 300 edges; d=4 after 20 steps (timed, in phase 9), and
-     the cell layout at d=4 (phase 13b, timed);
+     LOSS_RTOL, one launch a pass of the kernel d asks for (d <= 8: the
+     segment-major kernel, else the general variant); girg100k d=2 after
+     20 steps (timed), in f64, with a partial index, over one rank's share
+     of three and with coincident endpoints whose raw kick draws include a
+     zero row, rows whose squares underflow (to 0 and to subnormals) and
+     rows whose squares overflow (kernel and ``unit_rows`` bitwise); a hub
+     of 10,500 edges with coincident spokes at d = 1, 2, 4, 8 (f32), d = 4
+     (f64) and d = 9 (the general variant); rows wider than a CTA (d=300 in
+     f32 and f64, d=520, d=2100 in f64) with a vertex of 300 edges; d=4
+     after 20 steps (timed, in phase 9), the cell layout at d=4 (phase
+     13b, timed), and converged girg100k d=2 (phase 10) and d=4 (phase
+     13b): an ``edge_pass_converged`` line each (ms a call, bound, share,
+     the run's launches);
  10. the span main path: the API on girg100k, d=2, seed 1,
      ``calculateEmbedding()``: below 1000 iterations, one sweep launch and
      one edge pass launch per iteration, final overflow 0, every state tensor finite, total loss
@@ -255,6 +264,32 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of ``fn`` over ``reps`` replays of a
+    CUDA graph of one call, by CUDA events: the device's time, without the
+    host's work between calls (a wrapper's checks and ctypes call)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(flop: float, nbytes: float, f64: bool = False) -> tuple[float, str]:
     """(least ms the card could take, "operations" or "bytes"), the
     operations at the FP32 or FP64 rate outside the tensor cores."""
@@ -281,14 +316,15 @@ def spills(log: str) -> dict:
     return out
 
 
-def ptxas_usage(log: str, kernel: str) -> dict:
+def ptxas_usage(log: str, kernel: str, dim: str = "ILi{}E") -> dict:
     """{d: {registers, spill_stores, spill_loads}} of ``kernel<d>`` from
-    ptxas -v (entries mangled as ...kernelILi<d>E...)."""
+    ptxas -v (entries mangled as ...kernel followed by ``dim`` with d in
+    it: ...kernelILi<d>E... for a first template argument d)."""
     import re
 
     out, d = {}, None
     for line in log.splitlines():
-        m = re.search(r"Function properties for \S*" + kernel + r"ILi(\d+)E", line)
+        m = re.search(r"Function properties for \S*" + kernel + dim.format(r"(\d+)"), line)
         if m or "Function properties for" in line:
             d = int(m.group(1)) if m else None
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -300,14 +336,16 @@ def ptxas_usage(log: str, kernel: str) -> dict:
     return dict(sorted(out.items()))
 
 
-def check_no_spills(name: str, log: str, kernel: str) -> None:
-    """Fail unless ptxas reports ``kernel<D>`` spill-free for every D of
-    SPILL_FREE_DIMS (mangled as ...kernelILi<D>EE...)."""
+def check_no_spills(name: str, log: str, kernel: str, dim: str = "ILi{}E") -> None:
+    """Fail unless ptxas reports ``kernel<D>`` (every instantiation of it
+    at D) spill-free for every D of SPILL_FREE_DIMS (mangled as in
+    ``ptxas_usage``)."""
     found = spills(log)
     for d in SPILL_FREE_DIMS:
-        entry = [k for k in found if f"{kernel}ILi{d}E" in k]
-        check(len(entry) == 1, f"{name}: no ptxas report for {kernel}<{d}>")
-        check(found[entry[0]] == (0, 0), f"{name}: {kernel}<{d}> spills {found[entry[0]]}")
+        entries = [k for k in found if kernel + dim.format(d) in k]
+        check(len(entries) >= 1, f"{name}: no ptxas report for {kernel}<{d}>")
+        for k in entries:
+            check(found[k] == (0, 0), f"{name}: {k} spills {found[k]}")
 
 
 def same_twice(name: str, first, fn) -> None:
@@ -976,24 +1014,25 @@ def compare_span(name: str, case: dict, timed: bool) -> dict:
     return row
 
 
-def edge_case(impl, index=None, in_index=None, share=None, dtype=None, positions=None) -> dict:
+def edge_case(impl, index=None, in_index=None, share=None, dtype=None, positions=None, draws=None) -> dict:
     """The edge pass's inputs at a span embedder's current positions (or
     ``positions``), in ``dtype`` (default: the embedder's), over its index
     (or ``index``, with the member sample ``in_index``): ``edge_inputs``."""
     pos = impl.state.positions if positions is None else positions
     dtype = dtype or pos.dtype
     return edge_inputs(pos.to(dtype), impl._inv_w.to(dtype), impl._weights.to(dtype), impl._dg.colors,
-                       impl._index if index is None else index, impl.opts, in_index, share)
+                       impl._index if index is None else index, impl.opts, in_index, share, draws)
 
 
-def edge_inputs(pos, inv_w, weights, colors, index, opts, in_index=None, share=None) -> dict:
+def edge_inputs(pos, inv_w, weights, colors, index, opts, in_index=None, share=None, draws=None) -> dict:
     """The edge pass's inputs: the structures of ``index`` at ``pos`` (with
     the member sample ``in_index``), the sweep's per-vertex force and zero
-    counts, kicks from a fixed seed, and the edges of ``share`` (default:
-    all of them)."""
+    counts, the raw kick draw from a fixed seed (``draws``, when given,
+    overwrites rows of it: {edge: row}), and the edges of ``share``
+    (default: all of them) with their schedule."""
     import torch
 
-    from wembed_tpu_torch.core.forces import edge_share, random_unit_vectors
+    from wembed_tpu_torch.core.forces import edge_share, normal_rows
     from wembed_tpu_torch.kernels import span_sparse
 
     s = index.structures(pos, inv_w, weights, colors, opts, None, in_index)
@@ -1001,20 +1040,23 @@ def edge_inputs(pos, inv_w, weights, colors, index, opts, in_index=None, share=N
     t = index.tensors(pos.device)
     lo, hi, row_ptr = edge_share(t.edge_row_ptr, t.edge_src.shape[0], share)
     gen = torch.Generator(device=pos.device).manual_seed(7)
-    kicks = random_unit_vectors(gen, t.edge_src.shape[0], pos.shape[1], pos.dtype)[lo:hi]
+    kicks = normal_rows(gen, t.edge_src.shape[0], pos.shape[1], pos.dtype)
+    for j, row in (draws or {}).items():
+        kicks[j] = row
     return dict(
         args=(pos, inv_w, t.edge_src[lo:hi], t.edge_dst[lo:hi], row_ptr, opts),
-        kw=dict(kicks=kicks, structures=s, colors=colors, bm2=t.edge_bm2[lo:hi], in_index=in_index,
-                force=force_k, zero_count=zero_k),
+        kw=dict(kicks=kicks[lo:hi], schedule=t.edge_schedules.get(lo, hi), structures=s, colors=colors,
+                bm2=t.edge_bm2[lo:hi], in_index=in_index, force=force_k, zero_count=zero_k),
     )
 
 
-def wide_edge_case(d: int, dtype, n: int = 4000, hub: int = 300, seed: int = 90) -> dict:
-    """The edge pass's inputs at rows wider than a CTA of the kernel (256
-    threads): a random graph whose vertex 0 has ``hub`` more edges (a long
-    segment, folded by a whole CTA in slabs of 256 columns) at distances
-    around the edge length, heavy-tailed weights, windows sized to the
-    needs, in ``dtype``."""
+def wide_edge_case(d: int, dtype, n: int = 4000, hub: int = 300, seed: int = 90, coincident: int = 0) -> dict:
+    """The edge pass's inputs around a long segment: a random graph whose
+    vertex 0 has ``hub`` more edges (folded by a whole CTA; in slabs of 256
+    columns for rows wider than a CTA) at distances around the edge
+    length, every ``coincident``-th of them (when given) with its endpoint
+    on the hub, heavy-tailed weights, windows sized to the needs, in
+    ``dtype``."""
     import numpy as np
     import torch
 
@@ -1030,8 +1072,11 @@ def wide_edge_case(d: int, dtype, n: int = 4000, hub: int = 300, seed: int = 90)
     opts = EmbedderOptions(embedding_dimension=d)
     idx = span_sparse.SpanIndex.build(w, opts, g.edge_src, g.col_idx)
     dev = torch.device("cuda")
+    pos = rng.uniform(0.0, np.sqrt(6.0 / d), size=(n, d))
+    if coincident:
+        pos[spokes[::coincident, 1]] = pos[0]
     tensors = (
-        torch.tensor(rng.uniform(0.0, np.sqrt(6.0 / d), size=(n, d)), dtype=dtype, device=dev),
+        torch.tensor(pos, dtype=dtype, device=dev),
         torch.tensor(inv_exp_weights(w, d), dtype=dtype, device=dev),
         torch.tensor(w, dtype=dtype, device=dev),
         torch.arange(n, dtype=torch.int32, device=dev),
@@ -1044,22 +1089,47 @@ def wide_edge_case(d: int, dtype, n: int = 4000, hub: int = 300, seed: int = 90)
         idx = grown
     case = edge_inputs(*tensors, idx, opts)
     row_ptr = case["args"][4]
-    check(int((row_ptr[1:] - row_ptr[:-1]).max()) > 32, f"wide_d{d}: no segment longer than 32 edges")
+    check(int((row_ptr[1:] - row_ptr[:-1]).max()) >= hub, f"wide_d{d}: no segment of {hub} edges")
     return case
 
 
-def edge_pass_bound(mode: str, args, kw, out) -> tuple[float, str]:
-    """The edge pass's least time on the card: each input read once (the
-    structures' three per-vertex columns at 8 bytes a vertex, their window
-    tables) and each output written once, against ~(4d + 16) operations
-    an edge."""
+def extreme_draws(pos, picks, dtype) -> dict:
+    """Raw kick rows for the edges ``picks`` (coincident ones): a zero row,
+    rows whose squares underflow to 0 and to subnormals, and rows whose
+    squares overflow, in ``dtype`` (``unit_rows``' edge cases; the kernel
+    must give its bits)."""
     import torch
+
+    d = pos.shape[1]
+    big, tiny, sub = (1e30, 1e-30, 1e-20) if dtype == torch.float32 else (1e200, 1e-200, 1e-160)
+    ramp = torch.arange(1, d + 1, dtype=dtype, device=pos.device)
+    rows = [torch.zeros(d, dtype=dtype, device=pos.device), tiny * ramp, sub * ramp, big * ramp, -big * ramp]
+    return {int(j): row for j, row in zip(picks.tolist(), rows)}
+
+
+def edge_pass_bound(mode: str, args, kw, out) -> tuple[float, str]:
+    """The edge pass's least time on the card: each input it needs read
+    once and each output written once, against ~(4d + 16) operations an
+    edge.  The inputs: the positions and inverse weights, the CSR offsets,
+    the destinations at 4 bytes an edge (the schedule's int32 copy; no
+    source index: the offsets say it; not the schedule's table either, which
+    the kernel derives from the offsets), in the span modes the radius factors,
+    colours, lw, the structures' three per-vertex columns (8 bytes a
+    vertex each) and window tables, the sweep's force and zero counts and
+    the member sample; kick rows only at the coincident edges (dist2 = 0),
+    the only ones the pass reads.  (The two-kernel design's bound counted
+    src and dst at 16 bytes an edge and every kick row.)"""
+    import torch
+
+    from wembed_tpu_torch.core.edge_geometry import edge_geometry
 
     pos, inv_w, src, dst, row_ptr, _ = args
     n, d = pos.shape
-    moved = nbytes(pos, inv_w, src, dst, row_ptr, *(t for t in out if t is not None))
+    schedule = kw["schedule"]
+    moved = nbytes(pos, inv_w, row_ptr, schedule.dst, *(t for t in out if t is not None))
     if mode != "correction":
-        moved += nbytes(kw["kicks"])
+        _, dist2 = edge_geometry(pos, src, dst)
+        moved += int((dist2 == 0).sum()) * d * pos.element_size()
     if mode != "attraction":
         s = kw["structures"]
         tables = (s.start, s.stop, s.prefix) if hasattr(s, "prefix") else (s.start_tile,)
@@ -1072,31 +1142,39 @@ def compare_edge_pass(name: str, case: dict, modes=EDGE_MODES, timed: bool = Fal
     """The edge pass kernel against its plain version on the same CUDA
     tensors, in each of ``modes``: forces, zero counts and counted
     neighbours bitwise equal (every operation repeats the plain version's,
-    and each vertex's edges are folded in edge order from 0, as
-    ``torch.segment_reduce`` folds them), the losses within LOSS_RTOL
-    (F64_RTOL in f64; the kernel adds them in another order), two
-    launches bitwise equal; in the span modes some neighbour pair counted
-    by the sweep."""
+    kicks normalised as ``unit_rows`` normalises them, and each vertex's
+    edges are folded in edge order from 0, as ``torch.segment_reduce``
+    folds them), the losses within LOSS_RTOL (F64_RTOL in f64; the kernel
+    adds them in another order), one launch of the variant d asks for
+    (d <= 8: the segment-major kernel), two launches bitwise equal; in the
+    span modes some neighbour pair counted by the sweep.  ``timed``: ms a
+    call of the kernel replayed from a CUDA graph (``graph_ms``), of the
+    plain version by CUDA events around eager calls, and the bound."""
     import torch
 
     from wembed_tpu_torch.kernels import edge_pass as ep
 
     args = case["args"]
     pos = args[0]
+    fast = pos.shape[1] <= ep.MAX_FAST_DIM
     rows = {}
     for mode in modes:
-        kw = case["kw"] if mode != "attraction" else dict(kicks=case["kw"]["kicks"])
+        kw = case["kw"] if mode != "attraction" else dict(kicks=case["kw"]["kicks"], schedule=case["kw"]["schedule"])
         label = f"{name}_{mode}"
-        before = ep.edge_pass.launches
+        before, general = ep.edge_pass.launches, ep.edge_pass.launches_general
         out = ep.edge_pass(mode, *args, **kw)
         torch.cuda.synchronize()
         check(ep.edge_pass.launches == before + 1, f"{label}: the kernel did not launch")
+        check(ep.edge_pass.launches_general == general + (not fast),
+              f"{label}: the {'general' if fast else 'segment-major'} kernel ran at d = {pos.shape[1]}")
         same_twice(label, [t for t in out if t is not None],
                    lambda: [t for t in ep.edge_pass(mode, *args, **kw) if t is not None])
         ref = ep.edge_pass_reference(mode, *args, **kw)
         torch.cuda.synchronize()
         row = dict(case=name, mode=mode, n=pos.shape[0], d=pos.shape[1], dtype=str(pos.dtype).split(".")[1],
-                   edges=int(args[2].shape[0]), bitwise_force=bool(torch.equal(out.force, ref.force)),
+                   kernel="segment_pass" if fast else "general", edges=int(args[2].shape[0]),
+                   longest_segment=int((args[4][1:] - args[4][:-1]).max()),
+                   bitwise_force=bool(torch.equal(out.force, ref.force)),
                    max_abs_err=float((out.force - ref.force).abs().max()),
                    max_abs_force=float(ref.force.abs().max()))
         losses = [(key, getattr(out, key), getattr(ref, key)) for key in ("att_loss", "corr_loss")
@@ -1106,10 +1184,12 @@ def compare_edge_pass(name: str, case: dict, modes=EDGE_MODES, timed: bool = Fal
             row.update(corr_count=[int(out.corr_count), int(ref.corr_count)],
                        coincident_neighbours=int((kw["zero_count"] - ref.zero_count).sum()),
                        bitwise_zero=bool(torch.equal(out.zero_count, ref.zero_count)))
-        if timed:
-            row["ms"] = cuda_ms(lambda: ep.edge_pass(mode, *args, **kw), 20)
+        if timed:  # the kernel replayed from a graph (its time, not the wrapper's); the plain version eagerly
+            row["ms"] = graph_ms(lambda: ep.edge_pass(mode, *args, **kw), 50)
+            ep.edge_pass.launches -= 1  # of graph_ms's two calls, the capture's launched nothing
             row["plain_ms"] = cuda_ms(lambda: ep.edge_pass_reference(mode, *args, **kw), 5)
             row["bound_ms"], row["bound_by"] = edge_pass_bound(mode, args, kw, out)
+            row["share"] = row["bound_ms"] / row["ms"]
         print("compare_edge_pass " + json.dumps(row))
         check(row["bitwise_force"], f"{label}: forces differ by up to {row['max_abs_err']}")
         for key, k, p in losses:
@@ -1121,13 +1201,26 @@ def compare_edge_pass(name: str, case: dict, modes=EDGE_MODES, timed: bool = Fal
     return rows
 
 
+def edge_pass_converged(name: str, impl, launches: int) -> dict:
+    """The fused pass at a converged run's positions: ms a call, bound and
+    share (``compare_edge_pass``, timed), beside the run's launches."""
+    row = compare_edge_pass(name, edge_case(impl), modes=("fused",), timed=True)["fused"]
+    line = {k: row[k] for k in ("case", "d", "edges", "longest_segment", "kernel", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "share")}
+    line["launches"] = launches
+    print("edge_pass_converged " + json.dumps(line))
+    return line
+
+
 def edge_pass_cases_d2(impl) -> dict:
     """Phase 9c at girg100k d=2 after 20 steps: the edge pass in every
-    mode (timed), in f64, with a partial index (``index_size=0.5``, one
+    mode (timed), in f64 (timed), with a partial index (``index_size=0.5``, one
     member draw), over one rank's share of three (its range of the edges,
     the segments clipped to it), with every 97th edge's endpoints made to
-    coincide (kicks and coincident neighbours); then ``wide_edge_case``
-    at d=300 (f32, f64), d=520 and d=2100 (f64)."""
+    coincide (kicks, among them ``extreme_draws``, and coincident
+    neighbours); then ``wide_edge_case`` with a hub of 10,500 edges (every
+    97th spoke coincident) at d = 1, 2, 4, 8 (f32), 4 (f64) and 9 (the
+    general variant), d=4 timed in both types, and at d=300 (f32, f64), d=520 and d=2100 (f64)."""
     import torch
 
     from wembed_tpu_torch.core import EmbedderOptions
@@ -1135,7 +1228,7 @@ def edge_pass_cases_d2(impl) -> dict:
     from wembed_tpu_torch.kernels.span_sparse import SpanIndex
 
     rows = compare_edge_pass("girg100k_d2_step20", edge_case(impl), timed=True)
-    compare_edge_pass("girg100k_d2_step20_f64", edge_case(impl, dtype=torch.float64))
+    compare_edge_pass("girg100k_d2_step20_f64", edge_case(impl, dtype=torch.float64), timed=True)
     half = SpanIndex.build(impl.get_weights(), EmbedderOptions(embedding_dimension=2, index_size=0.5),
                            *impl._span_edges())
     members = half.draw_members(torch.Generator(device=impl.state.positions.device).manual_seed(3))
@@ -1146,9 +1239,18 @@ def edge_pass_cases_d2(impl) -> dict:
     t = impl._index.tensors(pos.device)
     pick = torch.arange(0, t.edge_src.shape[0], 97, device=pos.device)
     pos[t.edge_dst[pick]] = pos[t.edge_src[pick]]
-    coincident = compare_edge_pass("girg100k_d2_step20_coincident", edge_case(impl, positions=pos))
-    check(all(coincident[m]["coincident_neighbours"] > 0 for m in ("fused", "correction")),
-          "the coincident edge case counted no coincident neighbour")
+    met = pick[(pos[t.edge_dst[pick]] == pos[t.edge_src[pick]]).all(dim=1)]
+    for dtype in (torch.float32, torch.float64):
+        p = pos.to(dtype)
+        coincident = compare_edge_pass(
+            f"girg100k_d2_step20_coincident_{str(dtype).split('.')[1]}",
+            edge_case(impl, positions=p, draws=extreme_draws(p, met[:5], dtype)))
+        check(all(coincident[m]["coincident_neighbours"] > 0 for m in ("fused", "correction")),
+              "the coincident edge case counted no coincident neighbour")
+    for d, dtype in ((1, torch.float32), (2, torch.float32), (4, torch.float32), (8, torch.float32),
+                     (4, torch.float64), (9, torch.float32)):
+        compare_edge_pass(f"n12000_hub10500_d{d}_{str(dtype).split('.')[1]}",
+                          wide_edge_case(d, dtype, n=12000, hub=10500, coincident=97), timed=d == 4)
     for d, dtype, n in ((300, torch.float32, 4000), (300, torch.float64, 4000), (520, torch.float32, 4000),
                         (2100, torch.float64, 1500)):
         compare_edge_pass(f"n{n}_hub_d{d}_{str(dtype).split('.')[1]}", wide_edge_case(d, dtype, n=n))
@@ -1564,10 +1666,11 @@ def map_only(csr, coords, weights) -> float:
 
 
 def general_launches() -> dict:
-    from wembed_tpu_torch.kernels import fused_dense, span_sweep
+    from wembed_tpu_torch.kernels import edge_pass, fused_dense, span_sweep
 
     return dict(fused_dense=fused_dense.fused_dense_forces.launches_general,
-                span_sweep=span_sweep.span_sweep.launches_general)
+                span_sweep=span_sweep.span_sweep.launches_general,
+                edge_pass=edge_pass.edge_pass.launches_general)
 
 
 def converge(name: str, impl, graph, kernel: str, ref_total: float | None = None,
@@ -1803,11 +1906,14 @@ def girg100k_d4(generators: dict, reference: dict, tmp: Path) -> dict:
         impl = WEmbedEmbedder(graph.csr, opts, verbose=False)
         check(impl.span_layout == name, f"{name}: built the {impl.span_layout} layout")
         row = converge(f"girg100k_d4_{name}", impl, graph, "span_sweep", ref_total=ref_total, map_floor=map_floor)
-        check(row["launches_general"]["span_sweep"] == 0, f"{name}: the general sweep ran")
+        check(row["launches_general"]["span_sweep"] == row["launches_general"]["edge_pass"] == 0,
+              f"{name}: a general kernel ran: {row['launches_general']}")
         row.update(final_work_tiles=impl._index.w, shrink_events=impl._shrink_events,
                    quality=evaluate_embedding(graph.csr, impl.get_coordinates(), impl.get_weights()))
         print(f"quality_girg100k_d4_{name} " + json.dumps(row["quality"]))
         row["profile"] = layout_profile(name, impl)
+        if name == "windows":
+            row["edge_pass"] = edge_pass_converged("girg100k_d4_converged", impl, row["launches"]["edge_pass"])
         runs[name] = row
         del impl
     resume = cells_resume(graph, tmp)
@@ -1926,7 +2032,7 @@ def kernels_a_replay(impl, steps: int = 5) -> dict:
     from torch.profiler import ProfilerActivity, profile, schedule
 
     names = ("fused_dense_kernel", "rows_kernel", "finalize_kernel", "span_sweep_kernel",
-             "span_reduce_kernel", "edge_pass_kernel", "edge_segment_kernel")
+             "span_reduce_kernel", "segment_pass_kernel", "edge_pass_kernel", "edge_segment_kernel")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=2, active=steps, repeat=1)) as prof:
@@ -2013,7 +2119,8 @@ def step_graph_runs(graph10k, graph100k) -> dict:
             check(row["window_changes_graphed"] >= 1,
                   f"step graph {name}: no window change in {GRAPH_STEPS} steps")
             check(replay["span_sweep_kernel"] == replay["span_reduce_kernel"] == 1
-                  and replay["edge_pass_kernel"] == replay["edge_segment_kernel"] == 1,
+                  and replay["segment_pass_kernel"] == 1
+                  and replay["edge_pass_kernel"] == replay["edge_segment_kernel"] == 0,
                   f"step graph {name}: {replay} a replay")
         else:
             check(replay["fused_dense_kernel"] == 1, f"step graph {name}: {replay} a replay")
@@ -2580,10 +2687,22 @@ def run_phases(kind, generators: dict) -> int:
     check_no_spills("fused_dense", infos["fused_dense"].log, "fused_dense_kernel")
     print("ptxas_span_sweep " + json.dumps(ptxas_usage(infos["span_sweep"].log, "span_sweep_kernel")))
     check_no_spills("span_sweep", infos["span_sweep"].log, "span_sweep_kernel")
-    edge_spills = {k: v for k, v in spills(infos["edge_pass"].log).items()
-                   if "edge_pass_kernel" in k or "edge_segment_kernel" in k}
-    check(len(edge_spills) == 4 and all(v == (0, 0) for v in edge_spills.values()),
-          f"edge_pass: ptxas reports {edge_spills}")
+    edge_log = infos["edge_pass"].log
+    # segment_pass_kernel<T, D, C>, mangled ...segment_pass_kernelI{f,d}Li<D>ELi<C>E...
+    print("ptxas_edge_pass " + json.dumps({
+        f"{dtype}_{cover}": ptxas_usage(edge_log, f"segment_pass_kernelI{code}", "Li{}ELi" + str(c) + "E")
+        for dtype, code in (("f32", "f"), ("f64", "d")) for c, cover in enumerate(("windows", "cells", "attraction"))
+    }))
+    # every instantiation spill-free: segment_pass_kernel in f32 and f64 at
+    # d = 1 ... 8 under each C (48), the general variant's two kernels (4)
+    edge_spills = spills(edge_log)
+    fast = {k: v for k, v in edge_spills.items() if "segment_pass_kernel" in k}
+    general = {k: v for k, v in edge_spills.items() if "edge_pass_kernel" in k or "edge_segment_kernel" in k}
+    check(len(fast) == 48 and all(v == (0, 0) for v in fast.values()),
+          f"edge_pass: ptxas reports {len(fast)} segment_pass_kernel entries, spills "
+          f"{ {k: v for k, v in fast.items() if v != (0, 0)} }")
+    check(len(general) == 4 and all(v == (0, 0) for v in general.values()),
+          f"edge_pass: ptxas reports {general} for the general variant")
 
     # ---- phase 3: the dense kernel against its plain version
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2827,6 +2946,7 @@ def run_phases(kind, generators: dict) -> int:
     span_sweep.span_sweep.launches = 0
     span_sweep.span_sweep.launches_general = 0
     edge_pass.edge_pass.launches = 0
+    edge_pass.edge_pass.launches_general = 0
     t0 = time.perf_counter()
     embedder.calculateEmbedding()
     torch.cuda.synchronize()
@@ -2857,6 +2977,7 @@ def run_phases(kind, generators: dict) -> int:
     check(span_launches == iterations, f"{span_launches} sweep launches for {iterations} iterations")
     check(span_general == 0, f"the span main path launched the general sweep {span_general} times")
     check(edge_launches == iterations, f"{edge_launches} edge pass launches for {iterations} iterations")
+    check(edge_pass.edge_pass.launches_general == 0, "the span main path ran the edge pass's general variant")
     check(overflow == 0, f"span path ended with overflow {overflow}")
     check_finite(state, "on the span path")
     check(loss.total <= LOSS_FACTOR * ref_total, f"span total loss {loss.total} > {LOSS_FACTOR} x {ref_total}")
@@ -2867,6 +2988,7 @@ def run_phases(kind, generators: dict) -> int:
     check(flat["MAP"] >= map_floor, f"girg100k MAP {flat['MAP']} < {map_floor}")
     print("span_breakdown " + json.dumps(span_breakdown(impl)))
     print("profile_span " + json.dumps(profile_steps(impl)))
+    edge_d2_converged = edge_pass_converged("girg100k_d2_converged", impl, edge_launches)
     del embedder, impl, state
 
     # ---- phase 10c: the same run through the edge pass's plain version
@@ -3035,6 +3157,9 @@ def run_phases(kind, generators: dict) -> int:
             # no Pallas kernel: the JAX package's span edge pass is plain jnp
             "replaces": "wembed_tpu/kernels/span_sparse.py:2062",
             "launches": edge_launches,
+            "launches_windows_d4": d4["runs"]["windows"]["launches"]["edge_pass"],
+            "launches_cells": d4["runs"]["cells"]["launches"]["edge_pass"],
+            "converged": {"girg100k_d2": edge_d2_converged, "girg100k_d4": d4["runs"]["windows"]["edge_pass"]},
             "girg100k_d2": {mode: general_timing(row) for mode, row in edge_d2.items()},
             "girg100k_d4": {mode: general_timing(row) for mode, row in edge_d4.items()},
             "girg100k_d4_cells": {mode: general_timing(row) for mode, row in d4["edge_cells"].items()},

@@ -9,7 +9,9 @@ version for CPU tensors, takes rows of any width and rejects what the
 CUDA kernel does not take.
 
 The JAX package draws the edges' kicks from its own key; the port's pass
-takes its kicks as an argument, so the tests hand it the JAX draw and
+takes the raw normal draw as an argument and normalises the rows it uses
+(``unit_rows``), so the tests hand it the normal draw behind the JAX
+package's unit kicks (``jax.random.normal`` of the same key and shape) and
 compare kicked rows too."""
 
 import functools
@@ -32,7 +34,7 @@ from wembed_tpu.kernels import span_compact as jax_cells
 from wembed_tpu.kernels import span_sparse as jax_span
 
 from wembed_tpu_torch.core import EmbedderOptions
-from wembed_tpu_torch.core.forces import edge_share, random_unit_vectors
+from wembed_tpu_torch.core.forces import edge_share, normal_rows
 from wembed_tpu_torch.core.step import Share
 from wembed_tpu_torch.core.weights import inv_exp_weights
 from wembed_tpu_torch.graphs import from_edges
@@ -90,10 +92,15 @@ class Case:
         )
 
     def jax_kicks(self, key, dtype):
-        """The JAX package's draw for these edges, as the port's (E, d)."""
-        e = self.g.num_directed_edges
-        rows = int(self.jidx.edge_src.shape[0])
-        return np.asarray(jax_forces.random_unit_vectors(key, (rows,), self.d, dtype))[:e]
+        """The normal draw behind the JAX package's kicks for these edges,
+        as the port's raw (E, d) draw."""
+        return jax_draw(key, int(self.jidx.edge_src.shape[0]), self.d, dtype)[: self.g.num_directed_edges]
+
+
+def jax_draw(key, rows, d, dtype):
+    """The (rows, d) normal draw that ``wembed_tpu/core/forces.py:
+    random_unit_vectors`` normalises into its unit kicks from ``key``."""
+    return np.asarray(jax.random.normal(key, (rows, d), dtype=dtype))
 
 
 @functools.lru_cache(maxsize=None)
@@ -154,7 +161,7 @@ def test_attraction_matches_jax(d, dtype, additive, coincident):
     f_j, loss_j = jax_forces.attraction_forces(
         jnp.asarray(c.pos, jdtype), jnp.asarray(c.inv_w, jdtype), dg, c.jopts, key
     )
-    kicks = np.asarray(jax_forces.random_unit_vectors(key, (dg.edge_src.shape[0],), d, jdtype))
+    kicks = jax_draw(key, dg.edge_src.shape[0], d, jdtype)
     out = attraction_pass(c, kicks[: c.g.num_directed_edges], tdtype)
     src, dst = c.g.edge_src, c.g.col_idx
     assert np.all(c.pos[src] == c.pos[dst], axis=1).any() == coincident
@@ -217,7 +224,7 @@ def _dense_f64(c: Case, key):
     f_r, loss_r, count_r, zero_r = jax_forces.dense_repulsion_forces(
         pos, inv_w, jax_forces.build_dense_adjacency(dg), dg.colors, c.jopts
     )
-    kicks = np.asarray(jax_forces.random_unit_vectors(key, (dg.edge_src.shape[0],), c.d, jnp.float64))
+    kicks = jax_draw(key, dg.edge_src.shape[0], c.d, jnp.float64)
     return np.asarray(f_a), float(loss_a), np.asarray(f_r), float(loss_r), np.asarray(zero_r), kicks
 
 
@@ -271,7 +278,7 @@ def test_partial_index_matches_the_jax_bucket_path():
         pos, inv_w, w, dg, jidx, jopts, key, structures=structures
     )
     f_a, loss_a = jax_forces.attraction_forces(pos, inv_w, dg, jopts, key)
-    kicks = np.asarray(jax_forces.random_unit_vectors(key, (dg.edge_src.shape[0],), 2, jnp.float64))
+    kicks = jax_draw(key, dg.edge_src.shape[0], 2, jnp.float64)
     in_index = torch.tensor(np.asarray(structures.in_index))
     assert 0 < int(in_index.sum()) < c.n
 
@@ -373,7 +380,7 @@ def _wide_inputs(mode, d):
     pos = torch.tensor(rng.uniform(0.0, np.sqrt(6.0 / d), size=(n, d)))
     inv_w, colors = torch.tensor(inv_exp_weights(w, d)), torch.arange(n, dtype=torch.int32)
     t = idx.tensors(torch.device("cpu"))
-    kicks = random_unit_vectors(torch.Generator().manual_seed(7), t.edge_src.shape[0], d, torch.float64)
+    kicks = normal_rows(torch.Generator().manual_seed(7), t.edge_src.shape[0], d, torch.float64)
     args = [pos, inv_w, t.edge_src, t.edge_dst, t.edge_row_ptr, opts]
     kw = dict(kicks=kicks)
     if mode != "attraction":

@@ -142,6 +142,48 @@ def test_reconstruction_metrics_match_jax(method):
         assert port[k] == pytest.approx(ref[k], rel=1e-12, abs=1e-12)
 
 
+def _manhattan(base):
+    """A subclass of ``base`` (either package's ``Euclidean``, or its base
+    ``Space``) ranking by L1 distance: a space with no device rows."""
+
+    class Manhattan(base):
+        def __init__(self, positions):
+            self.positions = positions
+            self.n, self.dimension = positions.shape
+
+        def rows(self, ids):
+            return np.abs(self.positions[ids][:, None, :] - self.positions[None, :, :]).sum(axis=-1)
+
+        def pairs(self, a, b):
+            return np.abs(self.positions[a] - self.positions[b]).sum(axis=-1)
+
+    return Manhattan
+
+
+@pytest.mark.parametrize("base", ["Space", "Euclidean"])
+def test_auto_scores_a_space_without_device_rows_on_the_host(base):
+    """Queue 3 fault 1: under "auto" a ``Space`` subclass that the device
+    rows do not know is ranked on the host, by both packages from one
+    seeded numpy generator, with equal results.  The device path draws its
+    sample before it raises, so the host ranks the generator's second
+    draw, as a host run after one permutation does; "device" raises."""
+    from wembed_tpu.eval import spaces as jax_spaces
+
+    g_j, g_t, rng = _graph(200, seed=8)
+    pos = rng.normal(size=(g_t.num_vertices, 3))
+    port_space = _manhattan(getattr(spaces, base))(pos)
+    port = reconstruction_metrics(g_t, port_space, 60, np.random.default_rng(3), method="auto", device="cpu")
+    ref = jax_reconstruction.reconstruction_metrics(
+        g_j, _manhattan(getattr(jax_spaces, base))(pos), 60, np.random.default_rng(3), method="auto"
+    )
+    assert port == ref and port["MAP"] > 0
+    after = np.random.default_rng(3)
+    after.permutation(g_t.num_vertices)
+    assert reconstruction_metrics(g_t, port_space, 60, after, method="host") == port
+    with pytest.raises(NotImplementedError):
+        reconstruction_metrics(g_t, port_space, 60, np.random.default_rng(3), method="device", device="cpu")
+
+
 def test_reconstruction_metrics_rejects_unknown_method():
     _, g_t, rng = _graph(60)
     with pytest.raises(ValueError, match="unknown reconstruction method"):

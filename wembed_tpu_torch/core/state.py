@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..graphs.csr import CSRGraph
+from .edge_schedule import EdgeSchedules
 
 
 @dataclass(frozen=True)
@@ -31,20 +32,24 @@ class DeviceGraph:
     # (2m,) int64 sorted keys src * n + dst: neighbour membership is one
     # searchsorted (``forces._edge_membership``)
     edge_keys: torch.Tensor
+    # the edge pass kernel's schedules of these edges and of their shares
+    edge_schedules: EdgeSchedules
 
     @staticmethod
     def build(g: CSRGraph, device: torch.device) -> "DeviceGraph":
         def i64(a):
             return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
+        edge_dst = i64(g.col_idx)
         return DeviceGraph(
             n=g.num_vertices,
             num_edges=g.num_edges,
             edge_src=i64(g.edge_src),
-            edge_dst=i64(g.col_idx),
+            edge_dst=edge_dst,
             colors=torch.as_tensor(g.colors, dtype=torch.int32, device=device),
             row_ptr=i64(g.row_ptr),
             edge_keys=i64(g.edge_keys),
+            edge_schedules=EdgeSchedules(g.row_ptr, edge_dst),
         )
 
 

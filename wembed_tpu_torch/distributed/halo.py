@@ -271,8 +271,9 @@ class HaloEmbedder(MultiChipEmbedder):
     def _attraction(self, pos_l: torch.Tensor, ext: torch.Tensor, generator: torch.Generator):
         """Attraction over this rank's directed edges, from its rows and the
         received halo (``ext``): (force (R, d), loss, coincident edges a
-        row (R,) i32).  The edge kicks are the single-device draw, sliced at
-        the rank's first edge."""
+        row (R,) i32).  The edge kicks are the single-device raw draw,
+        sliced at the rank's first edge and normalised where they kick
+        (``edge_geometry.edge_attraction``)."""
         rp = self._rank_plan
         R, d = pos_l.shape
         dtype = pos_l.dtype
@@ -280,7 +281,7 @@ class HaloEmbedder(MultiChipEmbedder):
         if e_all == 0:
             zero = torch.zeros((), dtype=dtype, device=self.device)
             return torch.zeros_like(pos_l), zero, torch.zeros((R,), dtype=torch.int32, device=self.device)
-        kicks = forces.random_unit_vectors(generator, e_all, d, dtype)
+        kicks = forces.normal_rows(generator, e_all, d, dtype)
         k = rp.esrc.shape[0]
         diff, dist2 = edges.edge_geometry_between(pos_l, ext, rp.esrc, rp.edst_ext)
         iw = self._inv_w.to(dtype)

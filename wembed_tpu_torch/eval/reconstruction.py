@@ -92,8 +92,12 @@ def reconstruction_metrics(
 
     ``method``: "device" ranks in torch on ``device`` (eval/device.py,
     O(n) memory per sampled vertex), "host" runs the numpy loop, and "auto"
-    is "device": every space has a torch row.  A missing CUDA device
-    raises; CPU runs pass ``device="cpu"``."""
+    prefers the device and falls back to the host for a space with no
+    torch rows (a type outside the ten, a subclass included), as the JAX
+    package does (``wembed_tpu/eval/reconstruction.py:95-110``): the
+    device path has drawn its sample from ``rng`` before it finds that
+    out, and the host loop draws from the same ``rng`` after it.  A
+    missing CUDA device raises; CPU runs pass ``device="cpu"``."""
     if method not in ("auto", "host", "device"):
         raise ValueError(f"unknown reconstruction method {method!r}")
     if method == "host":
@@ -101,9 +105,14 @@ def reconstruction_metrics(
     else:
         from .device import sample_node_entries_device
 
-        entries = sample_node_entries_device(
-            g, space, num_node_samples, rng, node_ids=node_ids, device=device
-        )
+        try:
+            entries = sample_node_entries_device(
+                g, space, num_node_samples, rng, node_ids=node_ids, device=device
+            )
+        except NotImplementedError:
+            if method == "device":
+                raise
+            entries = sample_node_entries(g, space, num_node_samples, rng, node_ids=node_ids)
     if not entries:
         return {"constructDeg": 0.0, "MAP": 0.0}
     return {

@@ -29,6 +29,7 @@ _COUNTERS = (
     (_span_sweep.span_sweep, "launches"),
     (_span_sweep.span_sweep, "launches_general"),
     (_edge_pass.edge_pass, "launches"),
+    (_edge_pass.edge_pass, "launches_general"),
 )
 
 

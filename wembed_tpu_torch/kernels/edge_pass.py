@@ -1,5 +1,5 @@
 """The span edge pass: attraction and the neighbour correction over the
-directed edges, each source vertex's edges summed, in one CUDA kernel.
+directed edges, each source vertex's edges summed, in one CUDA launch.
 
 Not a port of a TPU kernel.  The JAX package runs this pass as plain jnp
 (``wembed_tpu/kernels/span_sparse.py:_edge_sides``, ``_edge_inclusion``,
@@ -24,8 +24,9 @@ dimensions in ascending order:
 
   attraction   dist * ws > L pulls src toward dst with attraction_scale *
                ws / dist (NewWEmbedEmbedder.cpp:188-219), loss dist - L/ws;
-               where the endpoints coincide the edge's row is its kick, a
-               random unit vector drawn by the caller
+               where the endpoints coincide the edge's row is its kick: the
+               caller's raw normal draw of that edge, normalised
+               (``core/edge_geometry.py:unit_rows``)
   correction   a pair the sweep counted (the same radius product, the
                layout's coverage, the colour filter and, under a partial
                index, dst's membership) and repelled (dist2 * ws^2 <= L^2,
@@ -37,8 +38,12 @@ The rows are summed per source vertex in edge order, starting from 0
 force: the sweep's, in the span modes.
 
 ``edge_pass`` launches the kernel for CUDA tensors (f32 or f64, any d)
-and runs ``edge_pass_reference`` for CPU tensors; both
-check their inputs alike.  ``edge_pass.launches`` counts the launches.
+and runs ``edge_pass_reference`` for CPU tensors; both check their inputs
+alike.  At d <= 8 it is one launch of ``segment_pass_kernel<T, D>``,
+segment-major over the edge set's schedule (``core/edge_schedule.py``),
+with no scratch rows; at d > 8 the general variant, two kernels through
+an (E, d) scratch.  ``edge_pass.launches`` counts every pass the
+kernel makes, ``edge_pass.launches_general`` those of the general variant.
 """
 
 from __future__ import annotations
@@ -48,12 +53,14 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.edge_geometry import edge_attraction, edge_geometry, segment_sum
+from ..core.edge_geometry import edge_attraction, edge_geometry, segment_sum, unit_rows
+from ..core.edge_schedule import LIGHT, WARPS, EdgeSchedule
 from . import _build
 from .span_sweep import ST as _ST
 
 MODES = ("fused", "correction", "attraction")
-_BLOCK = 256  # threads of a CTA in csrc/edge_pass.cu, one edge each in the first kernel
+MAX_FAST_DIM = 8  # the widest row of segment_pass_kernel; wider rows take the general variant
+_BLOCK = 256  # threads of a CTA in csrc/edge_pass.cu, one edge each in the general variant's first kernel
 
 
 class EdgePass(NamedTuple):
@@ -125,6 +132,7 @@ def edge_pass_reference(
     opts,
     *,
     kicks: torch.Tensor | None = None,
+    schedule: EdgeSchedule | None = None,
     structures=None,
     colors: torch.Tensor | None = None,
     bm2: torch.Tensor | None = None,
@@ -133,7 +141,7 @@ def edge_pass_reference(
     zero_count: torch.Tensor | None = None,
 ) -> EdgePass:
     """Plain PyTorch version of the kernel, with ``edge_pass``'s arguments
-    and results."""
+    and results (it needs no ``schedule``)."""
     if mode == "attraction":
         diff, dist2 = edge_geometry(positions, src, dst)
         iw = inv_w.to(positions.dtype)
@@ -152,7 +160,7 @@ def edge_pass_reference(
         att_loss = torch.sum(torch.where(act_a, dist - L / e.ws, 0.0))
         cr = torch.where(e.active_r, opts.repulsion_scale * e.ws * inv_dist, 0.0)
         net_e = (ca + cr)[:, None] * e.diff
-        net_e = torch.where((e.dist2 > 0)[:, None], net_e, kicks)
+        net_e = torch.where((e.dist2 > 0)[:, None], net_e, unit_rows(kicks))
     else:
         cr = torch.where(e.active_r, opts.repulsion_scale * e.ws * (1.0 / dist), 0.0)
         net_e = cr[:, None] * e.diff
@@ -171,24 +179,34 @@ class _Args(ctypes.Structure):
         *((name, ctypes.c_void_p) for name in (
             "pos", "inv_w", "src", "dst", "row_ptr", "kicks", "bm2", "lwpow", "colors",
             "in_index", "block_of", "row_of", "rank_of", "blk_t", "start_tile", "start",
-            "stop", "prefix", "base_force", "base_zero", "net", "zflag", "part_loss",
-            "part_count", "force", "zero", "loss", "count",
+            "stop", "prefix", "base_force", "base_zero", "sched", "dst32", "net", "zflag",
+            "part_loss", "part_count", "force", "zero", "loss", "count",
         )),
         *((name, ctypes.c_int64) for name in (
             "block_stride", "row_stride", "rank_stride", "blk_s0", "blk_s1", "tile_s0",
             "tile_s1", "start_s0", "start_s1", "stop_s0", "stop_s1", "prefix_s0",
-            "prefix_s1", "n", "d", "E", "mode", "layout", "additive",
+            "prefix_s1", "n", "d", "E", "mode", "layout", "additive", "heavy", "medium", "groups",
         )),
         *((name, ctypes.c_double) for name in ("L", "L2", "att_scale", "rep_scale")),
     ]
 
 
+_CONSTANTS = {
+    "wembed_edge_pass_block": _BLOCK,
+    "wembed_edge_pass_tile": _ST,
+    "wembed_edge_pass_light": LIGHT,
+    "wembed_edge_pass_warps": WARPS,
+    "wembed_edge_pass_max_fast_dim": MAX_FAST_DIM,
+}
+
+
 def _configure(lib: ctypes.CDLL) -> None:
-    for name in ("wembed_edge_pass_block", "wembed_edge_pass_tile"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
-    if (lib.wembed_edge_pass_block(), lib.wembed_edge_pass_tile()) != (_BLOCK, _ST):
-        raise RuntimeError("csrc/edge_pass.cu and kernels/edge_pass.py disagree on a constant")
+    for name, want in _CONSTANTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+        if fn() != want:
+            raise RuntimeError(f"csrc/edge_pass.cu and the package disagree on {name}: {fn()} != {want}")
     lib.wembed_edge_pass_error_string.argtypes = [ctypes.c_int]
     lib.wembed_edge_pass_error_string.restype = ctypes.c_char_p
     lib.wembed_edge_pass.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -206,7 +224,7 @@ def _expect(name, t, dtype, shape, *, strided=False):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check(mode, positions, inv_w, src, dst, row_ptr, *, kicks, structures, colors, bm2,
+def _check(mode, positions, inv_w, src, dst, row_ptr, *, kicks, schedule, structures, colors, bm2,
            in_index, force, zero_count) -> None:
     """Raise on what the kernel does not take, on either device."""
     if mode not in MODES:
@@ -252,6 +270,15 @@ def _check(mode, positions, inv_w, src, dst, row_ptr, *, kicks, structures, colo
         _expect(name, t, want, shape)
     for name, t, want, shape in strided:
         _expect(name, t, want, shape, strided=True)
+    if schedule is not None:
+        if (schedule.n, schedule.num_edges) != (n, num_edges):
+            raise ValueError(f"the schedule is of {schedule.n} vertices and {schedule.num_edges} edges, "
+                             f"the pass of {n} and {num_edges}")
+        entries = schedule.heavy + schedule.medium + schedule.groups
+        for item in (("the schedule's dst", schedule.dst, torch.int32, (num_edges,)),
+                     ("the schedule's table", schedule.table, torch.int64, (entries, 4))):
+            _expect(*item)
+            expected.append(item)
     for name, t, _, _ in [*expected, *strided]:
         if t.device != positions.device:
             raise ValueError(f"{name} is on {t.device}, positions on {positions.device}")
@@ -267,6 +294,7 @@ def edge_pass(
     opts,
     *,
     kicks: torch.Tensor | None = None,
+    schedule: EdgeSchedule | None = None,
     structures=None,
     colors: torch.Tensor | None = None,
     bm2: torch.Tensor | None = None,
@@ -278,16 +306,19 @@ def edge_pass(
     directed edges (``src``, ``dst``), src-sorted, with ``row_ptr`` (n+1,)
     their CSR offsets.  ``inv_w`` is taken in the positions' dtype.
 
-    ``kicks`` (fused, attraction): (E, d) the edges' kick rows.  The span
-    modes take the step's ``structures`` (either layout's), the vertices'
+    ``kicks`` (fused, attraction): (E, d) the edges' raw normal draws, a
+    row normalised (``unit_rows``) where its edge's endpoints coincide.
+    ``schedule``: these edges' schedule (``core/edge_schedule.py``, held
+    beside each edge set); the kernel needs it at d <= 8.  The span modes
+    take the step's ``structures`` (either layout's), the vertices'
     ``colors`` (i32), ``bm2`` (E,) f32 the radius factor of each edge's dst,
     ``in_index`` (n,) bool the step's members under a partial index (or
     None), and the sweep's per-vertex ``force`` and ``zero_count``.
 
     CUDA tensors go through the kernel on the current stream, without
     synchronising; CPU tensors through the plain version."""
-    kw = dict(kicks=kicks, structures=structures, colors=colors, bm2=bm2, in_index=in_index,
-              force=force, zero_count=zero_count)
+    kw = dict(kicks=kicks, schedule=schedule, structures=structures, colors=colors, bm2=bm2,
+              in_index=in_index, force=force, zero_count=zero_count)
     inv_w = inv_w.to(positions.dtype)
     _check(mode, positions, inv_w, src, dst, row_ptr, **kw)
     if positions.device.type == "cpu":
@@ -299,9 +330,15 @@ def edge_pass(
     num_edges = src.shape[0]
     dtype, device = positions.dtype, positions.device
     span = mode != "attraction"
-    parts = max(1, -(-num_edges // _BLOCK))
-    net = torch.empty((num_edges, d), dtype=dtype, device=device)
-    zflag = torch.empty((num_edges,), dtype=torch.uint8, device=device) if span else None
+    fast = d <= MAX_FAST_DIM
+    if fast and schedule is None:
+        raise ValueError("the edge pass kernel at d <= 8 needs the edges' schedule (core/edge_schedule.py)")
+    if fast:  # one slot a CTA, no scratch rows
+        parts, net, zflag = schedule.ctas, None, None
+    else:
+        parts = max(1, -(-num_edges // _BLOCK))
+        net = torch.empty((num_edges, d), dtype=dtype, device=device)
+        zflag = torch.empty((num_edges,), dtype=torch.uint8, device=device) if span else None
     part_loss = torch.empty((parts, 2), dtype=dtype, device=device)
     part_count = torch.empty((parts,), dtype=torch.int64, device=device)
     out = torch.empty((n, d), dtype=dtype, device=device)
@@ -320,6 +357,9 @@ def edge_pass(
         n=n, d=d, E=num_edges, mode=MODES.index(mode), additive=int(bool(opts.additive_weights)),
         L=L, L2=L * L, att_scale=float(opts.attraction_scale), rep_scale=float(opts.repulsion_scale),
     )
+    if fast:
+        a.sched, a.dst32 = ptr(schedule.table), ptr(schedule.dst)
+        a.heavy, a.medium, a.groups = schedule.heavy, schedule.medium, schedule.groups
     if span:  # the span modes' inputs; attraction reads none of them
         s = structures
         a.bm2, a.colors, a.in_index, a.lwpow = ptr(bm2), ptr(colors), ptr(in_index), ptr(s.lwpow)
@@ -348,9 +388,12 @@ def edge_pass(
         msg = lib.wembed_edge_pass_error_string(rc).decode()
         raise RuntimeError(f"edge_pass kernel launch failed: {msg} (cudaError {rc})")
     edge_pass.launches += 1
+    if not fast:
+        edge_pass.launches_general += 1
     if not span:
         return EdgePass(out, None, loss[0], None, None)
     return EdgePass(out, zero, loss[0] if mode == "fused" else None, loss[1], count[0])
 
 
-edge_pass.launches = 0  # kernel launches (both kernels of a pass); the plain version is not counted
+edge_pass.launches = 0  # passes the kernel made; the plain version is not counted
+edge_pass.launches_general = 0  # of which the general variant's (d > 8, two launches each)

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from ..core.candidates import _principal_axes3
+from ..core.edge_schedule import EdgeSchedules
 from . import span_sparse
 from .span_sparse import (
     _Q_SENTINEL,
@@ -104,6 +105,7 @@ class CellTensors(NamedTuple):
     edge_dst: torch.Tensor  # (2m,) i64
     edge_bm2: torch.Tensor  # (2m,) f32 class_bm2 of each edge's dst
     edge_row_ptr: torch.Tensor  # (n+1,) i64 CSR offsets
+    edge_schedules: EdgeSchedules  # the edge pass kernel's schedules of these edges and their shares
 
 
 @dataclass(frozen=True)
@@ -174,6 +176,7 @@ class CellIndex:
             def f32(a):
                 return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
+            edge_dst = i64(self.edge_dst)
             cached = CellTensors(
                 group_of=i64(self.group_of),
                 class_bm2=f32(self.class_bm2),
@@ -193,9 +196,10 @@ class CellIndex:
                 bmax_cell=f32(self.bmaxpow[self.cell_group]),
                 tile_off=torch.zeros((1,), dtype=torch.int32, device=device),
                 edge_src=i64(self.edge_src),
-                edge_dst=i64(self.edge_dst),
+                edge_dst=edge_dst,
                 edge_bm2=f32(self.edge_bm2),
                 edge_row_ptr=i64(self.edge_row_ptr),
+                edge_schedules=EdgeSchedules(self.edge_row_ptr, edge_dst),
             )
             self._tensors[key] = cached
         return cached
