@@ -13,10 +13,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      source) and the layered path's host label propagation (g++), all
      started together, compiled even where a library of the same sources
      exists; print the kernels' registers and spills (and a
-     ``ptxas_span_sweep`` and ``ptxas_edge_pass`` lines: the fast
-     kernels' registers and spills at each d), and fail on any spill of
-     the dense and sweep fast kernels in f32 at d <= 4 and on any in the
-     edge pass (every instantiation, f32 and f64);
+     ``ptxas_span_sweep``, ``ptxas_edge_pass`` and ``ptxas_span_build``
+     lines: the fast kernels' registers and spills at each d), and fail on
+     any spill of the dense and sweep fast kernels in f32 at d <= 4 and on
+     any in the edge pass and the structures build (every instantiation,
+     f32 and f64);
   3. hold the fused force kernel against its plain PyTorch version on the
      card: girg10k d=2 with degree weights at positions after 20 steps of
      a seeded run (timed), n = 16384, the largest dense size (timed),
@@ -76,9 +77,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      13b, timed), and converged girg100k d=2 (phase 10) and d=4 (phase
      13b): an ``edge_pass_converged`` line each (ms a call, bound, share,
      the run's launches);
+ 9d. hold the structures build's three kernels (``kernels/span_build.py``:
+     the principal axes, K = 2 and 3; the records; the windows) against
+     their plain versions on the card, bitwise, each on the inputs the
+     build hands it, and the whole build through the kernels against the
+     build through the plain versions (every field bitwise, one launch of
+     each kernel): girg100k d=2 at its start positions (timed), in f64
+     (timed) and with a partial index; synthetic graphs at d = 1, 3 and
+     16, in f64 at d = 3, and degenerate clouds (every point equal, points
+     on a line); converged girg100k d=2 (phase 10) and d=4 (phase 13b),
+     timed, with a ``build_trace`` line each (the kernels a build
+     launches, through the kernels and through the plain versions, at most
+     BUILD_LAUNCH_LIMIT) and a ``step_launch_account`` (a replayed step's
+     events by phase); the cell layout's build (K = 3 axes) in phase 13b;
  10. the span main path: the API on girg100k, d=2, seed 1,
      ``calculateEmbedding()``: below 1000 iterations, one sweep launch and
-     one edge pass launch per iteration, final overflow 0, every state tensor finite, total loss
+     one edge pass launch per iteration, one launch of each build kernel
+     per iteration and growth measurement, final overflow 0, every state tensor finite, total loss
      within 1.15x the C++ reference's, MAP at least 0.9x the C++
      reference's; then a breakdown of a step at the converged positions by
      CUDA events (with the sweep at other item sizes) and a profile of 20
@@ -208,7 +223,10 @@ GIRG100K_D4_MD5 = "3c113cf38828864d4bf07e943d5bd850"  # the port's generator, th
 CELLS_RESUME = 60  # steps on each side of the cells checkpoint
 GIRG100K_LAYERS = (4, 22, 133, 713, 3699)  # its dense coarse layers (seed 1, default partitioner)
 REFERENCE = REPO / "baselines" / "reference_measured.json"
-KERNELS = ("fused_dense", "span_sweep", "edge_pass")
+KERNELS = ("fused_dense", "span_sweep", "edge_pass", "span_build")
+BUILD_KERNELS = ("principal_axes", "span_records", "span_windows")  # csrc/span_build.cu's wrappers
+BUILD_TRACE_BUILDS = 10  # structures builds in each traced window of build_trace
+BUILD_LAUNCH_LIMIT = 60  # most kernels a structures build may launch, sorts and axes included
 EDGE_MODES = ("fused", "correction", "attraction")  # kernels/edge_pass.py MODES
 HOST_SOURCES = ("labelprop",)  # host C++ of the layered path, built with g++ beside the kernels
 LOSS_FACTOR = 1.15  # total loss may exceed the C++ reference's by at most this
@@ -333,6 +351,29 @@ def ptxas_usage(log: str, kernel: str, dim: str = "ILi{}E") -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and d is not None:
             out.setdefault(d, {})["registers"] = int(m.group(1))
+    return dict(sorted(out.items()))
+
+
+def ptxas_entries(log: str) -> dict:
+    """{kernel<type, args>: {registers, spill_stores, spill_loads}} of every
+    entry in a ptxas -v log, named from the mangled names (``f`` float,
+    ``d`` double, then the integer template arguments)."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for _Z\w*?\d+([a-z_]+_kernel)I([fd])((?:Li\d+E)*)E", line)
+        if m:
+            args = [m.group(2), *re.findall(r"Li(\d+)E", m.group(3))]
+            name = f"{m.group(1)}<{','.join(args)}>"
+        elif "Function properties for" in line:
+            name = None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
     return dict(sorted(out.items()))
 
 
@@ -688,12 +729,15 @@ def layered_main_path(graph, flat_map: float) -> dict:
     impl = embedder.impl
     fused_dense.fused_dense_forces.launches = 0
     span_sweep.span_sweep.launches = 0
+    for wrapper in build_wrappers().values():
+        wrapper.launches = 0
     t0 = time.perf_counter()
     embedder.calculateEmbedding()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(fused_dense=fused_dense.fused_dense_forces.launches,
-                    span_sweep=span_sweep.span_sweep.launches)
+                    span_sweep=span_sweep.span_sweep.launches,
+                    **{name: w.launches for name, w in build_wrappers().items()})
     records = impl.layer_records
     for r in records:
         print("layer " + json.dumps(dataclasses.asdict(r)))
@@ -1303,6 +1347,430 @@ def plain_edge_pass_run(graph, single: dict, kernel_map: float) -> dict:
     return row
 
 
+# ------------------------------------------------------ the structures build
+
+
+def plain_build():
+    """A context in which the structures build runs its kernels' plain
+    versions (the build as torch operations, as the parent ran it): the
+    callers reach the three wrappers through ``kernels.span_build``."""
+    import contextlib
+
+    from wembed_tpu_torch.kernels import span_build as sb
+
+    @contextlib.contextmanager
+    def swapped():
+        saved = (sb.principal_axes, sb.span_records, sb.span_windows)
+        sb.principal_axes, sb.span_records, sb.span_windows = (
+            sb.principal_axes_reference, sb.span_records_reference, sb.span_windows_reference)
+        try:
+            yield
+        finally:
+            sb.principal_axes, sb.span_records, sb.span_windows = saved
+
+    return swapped()
+
+
+def bitwise(a, b) -> bool:
+    """Same dtype, shape and bits (a float's sign of zero and NaN payload
+    included)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = torch.int64 if a.element_size() == 8 else torch.int32
+        return bool(torch.equal(a.contiguous().view(view), b.contiguous().view(view)))
+    return bool(torch.equal(a, b))
+
+
+def max_abs_diff(a_list, b_list) -> float:
+    """The largest |a - b| over paired tensors (integers too), in f64."""
+    return max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0 for a, b in zip(a_list, b_list))
+
+
+def build_case(positions, inv_w, weights, colors, idx, opts, in_index=None) -> dict:
+    return dict(pos=positions, inv_w=inv_w, weights=weights, colors=colors, idx=idx, opts=opts,
+                in_index=in_index)
+
+
+def synthetic_build_case(n: int, d: int, seed: int, dtype=None, cloud: str = "uniform") -> dict:
+    """A random graph with heavy-tailed weights (as ``synthetic_span_case``)
+    and its index, at positions in the random-start cube, all equal
+    (``cloud="equal"``: a zero covariance) or on a line (``"line"``)."""
+    import numpy as np
+    import torch
+
+    from wembed_tpu_torch.core import EmbedderOptions
+    from wembed_tpu_torch.core.weights import inv_exp_weights
+    from wembed_tpu_torch.graphs import from_edges
+    from wembed_tpu_torch.kernels import span_sparse
+
+    dtype = dtype or torch.float32
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.0, n ** (1.0 / d), size=(n, d))
+    if cloud == "equal":
+        pos[:] = 1.5  # exact sums: the centred cloud is exactly 0
+    elif cloud == "line":
+        pos = rng.normal(size=(n, 1)) * np.linspace(1.0, 2.0, d)[None, :] * 4.0
+    w = rng.pareto(2.0, n) + 1.0
+    g = from_edges(rng.integers(0, n, size=(4 * n, 2)), num_vertices=n)
+    opts = EmbedderOptions(embedding_dimension=d)
+    idx = span_sparse.SpanIndex.build(w, opts, g.edge_src, g.col_idx)
+    dev = torch.device("cuda")
+    return build_case(
+        torch.tensor(pos, dtype=dtype, device=dev), torch.tensor(inv_exp_weights(w, d), dtype=dtype, device=dev),
+        torch.tensor(w, dtype=dtype, device=dev), torch.tensor(np.arange(n), dtype=torch.int32, device=dev),
+        idx, opts)
+
+
+def build_bounds(case: dict, nb: int, rr: int, max_row: int) -> dict:
+    """(least ms, "bytes" or "operations") of each build kernel at this
+    case: its inputs read once and outputs written once over HBM, its
+    operations over the FP32 (FP64) rate.  The axes: the covariance and
+    the axes, 12 products and norms an axis; the records: the vertex
+    tables and slot maps in, the records, colours, inverse maps and sorted
+    values out; the windows: the slot map, the sorted values, the block
+    and row tables and the widths in (of the first sort and the first-axis
+    values only a row's two ends), the start tiles and needs out, two
+    binary searches of log2(longest row) steps a window."""
+    import math
+
+    from wembed_tpu_torch.kernels import span_build as sb
+
+    pos = case["pos"]
+    n, d = pos.shape
+    T = pos.element_size()
+    f64 = T == 8
+    idx = case["idx"]
+    nq, npa = idx.nq, idx.npa
+    axes_flop = 2 * (sb.ITERS * (2 * d * d + 2 * d) + 2 * d * d + 6 * d)
+    records_in = n * 8 + n * d * T + 4 * n * T + n * 8 + (n if case.get("in_index") is not None else 0) + (
+        nq + npa) * 8 + 3 * n * 8
+    records_out = (nq + npa) * ((d + 3) * T + 4) + n * 32 + 3 * n * T
+    windows_in = nq * 8 + 3 * n * T + 2 * nb * 8 + rr * 28 + nb * rr * 4 + 2 * rr * (8 + T)
+    windows_out = nb * rr * 12 + 8
+    searches = 2 * math.ceil(math.log2(max_row + 1))
+    return dict(
+        principal_axes=bound(axes_flop, (d * d + 2 * d) * T, f64),
+        span_records=bound(2 * (nq + npa), records_in + records_out, f64),
+        span_windows=bound(nb * rr * (searches + 12), windows_in + windows_out, f64),
+    )
+
+
+def compare_build(name: str, case: dict, timed: bool = False) -> dict:
+    """The structures build's three kernels against their plain versions on
+    the card, each on the inputs the build hands it at these tensors:
+    ``principal_axes`` (K = 2, and the cell layout's K = 3) on the
+    covariance, ``span_records`` on the permutation that the kernel's axes
+    give, ``span_windows`` on its records; every output bitwise equal, one
+    launch a call, two launches bitwise alike.  Then the whole build
+    through the kernels against the build through the plain versions (the
+    parent's build, no kernel launched): every field bitwise equal, one
+    launch of each kernel.  ``timed``: ms a call of each kernel and of the
+    whole build replayed from a CUDA graph (``graph_ms``), of the plain
+    versions by CUDA events around eager calls, each kernel's bound and
+    share."""
+    import torch
+
+    from wembed_tpu_torch.kernels import span_build as sb
+    from wembed_tpu_torch.kernels import span_sparse
+
+    pos, inv_w, weights, colors, idx, opts = (case[k] for k in ("pos", "inv_w", "weights", "colors", "idx", "opts"))
+    in_index = case["in_index"]
+    n, d = pos.shape
+    dtype, dev = pos.dtype, pos.device
+    t = idx.tensors(dev)
+    blk = idx.blk_t_tensor(dev)
+    wrappers = build_wrappers()
+    row = dict(case=name, n=n, d=d, dtype=str(dtype).split(".")[1], partial=in_index is not None,
+               rows=idx.num_rows, blocks=idx.nb, max_row=int(t.row_grid.shape[1]))
+
+    def launched(what, fn):
+        before = wrappers[what].launches
+        out = fn()
+        torch.cuda.synchronize()
+        check(wrappers[what].launches == before + 1, f"{name}: {what} did not launch its kernel")
+        return out
+
+    centered = pos - torch.mean(pos, dim=0)
+    cov = centered.T @ centered
+    err = {}
+    for k in (2, 3):
+        got = launched("principal_axes", lambda: sb.principal_axes(cov, k))
+        same_twice(f"{name}_axes{k}", [got], lambda: [sb.principal_axes(cov, k)])
+        want = sb.principal_axes_reference(cov, k)
+        row[f"axes{k}_bitwise"] = bitwise(got, want)
+        row[f"axes{k}_finite"] = bool(torch.isfinite(got).all())
+        err["principal_axes"] = max(err.get("principal_axes", 0.0), max_abs_diff([got], [want]))
+    axes = sb.principal_axes(cov, 2)
+    y = centered @ axes[0]
+    x = centered @ axes[1] if d >= 2 else y
+    order1 = span_sparse._argsort_by(y, t.group_of)
+    order = order1[span_sparse._argsort_by(x[order1], t.row_key)]
+    lwpow = idx.lwpow(weights, dtype, float(opts.edge_length))
+    rargs = (order, pos, inv_w.to(dtype), lwpow, colors, x, y, t, in_index)
+    rec = launched("span_records", lambda: sb.span_records(*rargs))
+    same_twice(f"{name}_records", list(rec), lambda: list(sb.span_records(*rargs)))
+    rec_p = sb.span_records_reference(*rargs)
+    row["records_bitwise"] = all(bitwise(a, b) for a, b in zip(rec, rec_p))
+    err["span_records"] = max_abs_diff(rec, rec_p)
+    wargs = (rec.sorted, y, order1, t, blk)
+    win = launched("span_windows", lambda: sb.span_windows(*wargs))
+    same_twice(f"{name}_windows", list(win), lambda: list(sb.span_windows(*wargs)))
+    win_p = sb.span_windows_reference(*wargs)
+    row["windows_bitwise"] = all(bitwise(a, b) for a, b in zip(win, win_p))
+    err["span_windows"] = max_abs_diff(win, win_p)
+    row["max_abs_err"] = err
+    row.update(overflow=int(win[2]), need=int(win[1].sum()),
+               non_members=int((rec.srec[:, 0] == -1e15).sum()) if in_index is not None else 0)
+
+    before = {k: w.launches for k, w in wrappers.items()}
+    s_k = idx.structures(pos, inv_w, weights, colors, opts, blk, in_index)
+    torch.cuda.synchronize()
+    mid = {k: w.launches for k, w in wrappers.items()}
+    with plain_build():
+        s_p = idx.structures(pos, inv_w, weights, colors, opts, blk, in_index)
+    torch.cuda.synchronize()
+    after = {k: w.launches for k, w in wrappers.items()}
+    row["build_launches"] = {k: mid[k] - before[k] for k in wrappers}
+    row["plain_build_launches"] = {k: after[k] - mid[k] for k in wrappers}
+    row["build_bitwise"] = {f: bitwise(getattr(s_k, f), getattr(s_p, f)) for f in s_k._fields}
+    if timed:
+        bounds = build_bounds(case, idx.nb, idx.num_rows, row["max_row"])
+        calls = dict(principal_axes=(lambda: sb.principal_axes(cov, 2), lambda: sb.principal_axes_reference(cov, 2)),
+                     span_records=(lambda: sb.span_records(*rargs), lambda: sb.span_records_reference(*rargs)),
+                     span_windows=(lambda: sb.span_windows(*wargs), lambda: sb.span_windows_reference(*wargs)))
+        timing = {}
+        for what, (kernel, plain) in calls.items():
+            ms = graph_ms(kernel, 50)
+            wrappers[what].launches -= 1  # of graph_ms's two calls, the capture's launched nothing
+            bound_ms, bound_by = bounds[what]
+            timing[what] = dict(ms=ms, plain_ms=cuda_ms(plain, 5), bound_ms=bound_ms, bound_by=bound_by,
+                                share=bound_ms / ms)
+        row["timing"] = timing
+        row["build_ms"] = graph_ms(lambda: idx.structures(pos, inv_w, weights, colors, opts, blk, in_index), 20)
+        for w in wrappers.values():
+            w.launches -= 1
+        with plain_build():
+            row["plain_build_ms"] = cuda_ms(lambda: idx.structures(pos, inv_w, weights, colors, opts, blk, in_index), 5)
+    print("compare_build " + json.dumps(row))
+    for k in (2, 3):
+        check(row[f"axes{k}_bitwise"], f"{name}: principal_axes (K = {k}) differs from its plain version")
+        check(row[f"axes{k}_finite"], f"{name}: principal_axes (K = {k}) is not finite")
+    check(row["records_bitwise"], f"{name}: span_records differs from its plain version")
+    check(row["windows_bitwise"], f"{name}: span_windows differs from its plain version")
+    check(all(row["build_bitwise"].values()), f"{name}: the build differs from the plain build: {row['build_bitwise']}")
+    check(all(v == 1 for v in row["build_launches"].values()), f"{name}: build launches {row['build_launches']}")
+    check(not any(row["plain_build_launches"].values()), f"{name}: the plain build launched a kernel")
+    if in_index is not None:
+        check(row["non_members"] > 0, f"{name}: the member sample left no vertex out")
+    return row
+
+
+def compare_cell_build(name: str, impl) -> dict:
+    """The cell layout's build at a cells embedder's positions and
+    capacities, through ``principal_axes`` (K = 3, one launch) against the
+    build through its plain version: every field bitwise equal."""
+    import torch
+
+    wrappers = build_wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    s_k = impl._span_structures()
+    torch.cuda.synchronize()
+    launches = {k: w.launches - before[k] for k, w in wrappers.items()}
+    with plain_build():
+        s_p = impl._span_structures()
+    torch.cuda.synchronize()
+    row = dict(case=name, layout=impl.span_layout, launches=launches,
+               bitwise={f: bitwise(getattr(s_k, f), getattr(s_p, f)) for f in s_k._fields})
+    print("compare_cell_build " + json.dumps(row))
+    check(impl.span_layout == "cells", f"{name}: not the cell layout")
+    check(launches == dict(principal_axes=1, span_records=0, span_windows=0), f"{name}: launches {launches}")
+    check(all(row["bitwise"].values()), f"{name}: the cell build differs from the plain build: {row['bitwise']}")
+    return row
+
+
+def build_trace(name: str, impl) -> dict:
+    """Kernels a structures build launches at an embedder's positions and
+    windows, from a ``torch.profiler`` trace of BUILD_TRACE_BUILDS eager
+    builds: through the hand kernels, and through their plain versions
+    (the parent's route); each route's device ms a build and its most
+    frequent kernels.  A build through the kernels may launch at most
+    BUILD_LAUNCH_LIMIT kernels, its sorts included."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    routes = {}
+    for route in ("kernels", "plain"):
+        with plain_build() if route == "plain" else contextlib.nullcontext():
+            impl._span_structures()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(BUILD_TRACE_BUILDS):
+                    impl._span_structures()
+                torch.cuda.synchronize()
+        kernels_n, copies, device_ms, names = 0, 0, 0.0, {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if e.name.startswith(("Memcpy", "Memset")):
+                copies += 1
+            else:
+                kernels_n += 1
+                names[e.name[:48]] = names.get(e.name[:48], 0) + 1
+            device_ms += e.time_range.elapsed_us() / 1000.0
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+        routes[route] = dict(
+            kernels_per_build=kernels_n / BUILD_TRACE_BUILDS, copies_per_build=copies / BUILD_TRACE_BUILDS,
+            device_ms_per_build=device_ms / BUILD_TRACE_BUILDS,
+            top_kernels_per_build={k: v / BUILD_TRACE_BUILDS for k, v in top},
+        )
+    row = dict(case=name, **routes)
+    print("build_trace " + json.dumps(row))
+    k = routes["kernels"]["kernels_per_build"]
+    check(0 < k <= BUILD_LAUNCH_LIMIT, f"{name}: a structures build launched {k} kernels")
+    return row
+
+
+BUILD_REPLACES = dict(  # the JAX lines each build kernel stands for (plain jnp, not Pallas)
+    principal_axes="wembed_tpu/core/candidates.py:409",
+    span_records="wembed_tpu/kernels/span_sparse.py:995",
+    span_windows="wembed_tpu/kernels/span_sparse.py:1159",
+)
+
+
+def build_kernel_entries(rows: dict, traces: dict, d4: dict, paths: dict) -> list[dict]:
+    """The kernels line's entries of the structures build's three kernels:
+    launches on the flat span main path and on every other path that ran
+    them, the times, bound and error at converged girg100k d=2 (d=4 and the
+    start positions beside them), and the build's kernels a call in the
+    traces, through the kernels and through the plain versions."""
+    conv = rows["girg100k_d2_converged"]
+    entries = []
+    for name in BUILD_KERNELS:
+        timing = conv["timing"][name]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "wembed_tpu_torch/csrc/span_build.cu",
+            # no Pallas kernel: the JAX package builds the span structures as plain jnp
+            "replaces": BUILD_REPLACES[name],
+            "launches": paths["flat"][name],
+            "launches_paths": {path: launches[name] for path, launches in paths.items()},
+            "girg100k_d4_converged": d4["runs"]["windows"]["build"]["timing"][name],
+            "girg100k_d2_iter0": rows["girg100k_d2_iter0"]["timing"][name],
+            "girg100k_d2_iter0_f64": rows["girg100k_d2_iter0_f64"]["timing"][name],
+            "max_abs_err": max(row["max_abs_err"][name] for row in rows.values()),
+            "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"],
+            "library_ms": None,  # no PyTorch call computes this part of the build
+        })
+    entries[0]["build_kernels_a_call"] = {
+        case: {route: trace[route]["kernels_per_build"] for route in ("kernels", "plain")}
+        for case, trace in {**traces, "girg100k_d4_converged": d4["runs"]["windows"]["build_trace"]}.items()
+    }
+    return entries
+
+
+LAUNCH_PHASES = (  # name patterns of a span step's device events, in the order they are tried
+    ("copies", ("Memcpy", "Memset", "memset", "memcpy")),
+    ("build_kernels", ("principal_axes_kernel", "span_records_kernel", "span_windows_kernel")),
+    ("sorts", ("RadixSort", "fill_reverse", "radix_sort", "sort_")),
+    ("sweep", ("span_sweep_kernel", "span_reduce_kernel", "span_sweep_general", "span_reduce_general")),
+    ("edge_pass", ("segment_pass_kernel", "edge_pass_kernel", "edge_segment_kernel")),
+)
+
+
+def launch_phases(prof, calls: int) -> dict:
+    """A trace's device events a call, by LAUNCH_PHASES (the rest:
+    ``other``)."""
+    import torch
+
+    counts = {name: 0 for name, _ in LAUNCH_PHASES}
+    counts["other"] = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        phase = next((name for name, pats in LAUNCH_PHASES if any(p in e.name for p in pats)), "other")
+        counts[phase] += 1
+    return {k: v / calls for k, v in counts.items()}
+
+
+def step_launch_account(name: str, impl, steps: int = 10) -> dict:
+    """A replayed span step's device events by phase, from a trace of
+    ``steps`` steps, beside one eager build's: the build's axes and
+    gathers are the build's ``other`` events, and the step's ``other``
+    less those is the finish (the kick draws, the optimizer, gravity, the
+    displacement and the sums)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    impl._state = impl._step(impl._state)
+    impl._state.pos_change.item()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            impl._state = impl._step(impl._state)
+            impl._state.pos_change.item()
+        torch.cuda.synchronize()
+    step = launch_phases(prof, steps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            impl._span_structures()
+        torch.cuda.synchronize()
+    build = launch_phases(prof, steps)
+    row = dict(case=name, step=step, build=build, step_total=sum(step.values()), build_total=sum(build.values()),
+               finish=step["other"] - build["other"])
+    print("step_launch_account " + json.dumps(row))
+    return row
+
+
+def build_cases_iteration0(impl) -> dict:
+    """Phase 9d at girg100k d=2's start positions (iteration 0): the build
+    kernels against their plain versions (timed), in f64 (timed), and with
+    a partial index (``index_size=0.5``, one member draw)."""
+    import torch
+
+    from wembed_tpu_torch.core import EmbedderOptions
+    from wembed_tpu_torch.kernels.span_sparse import SpanIndex
+
+    st = impl.state
+    at0 = (st.positions, impl._inv_w, impl._weights, impl._dg.colors)
+    rows = {"girg100k_d2_iter0": compare_build("girg100k_d2_iter0", build_case(*at0, impl._index, impl.opts),
+                                               timed=True)}
+    f64 = torch.float64
+    rows["girg100k_d2_iter0_f64"] = compare_build("girg100k_d2_iter0_f64", build_case(
+        at0[0].to(f64), at0[1].to(f64), at0[2].to(f64), at0[3], impl._index, impl.opts), timed=True)
+    half_opts = EmbedderOptions(embedding_dimension=2, index_size=0.5)
+    half = SpanIndex.build(impl.get_weights(), half_opts, *impl._span_edges())
+    members = half.draw_members(torch.Generator(device=st.positions.device).manual_seed(5))
+    rows["girg100k_d2_iter0_partial_index"] = compare_build(
+        "girg100k_d2_iter0_partial_index", build_case(*at0, half, half_opts, in_index=members))
+    return rows
+
+
+def build_cases_synthetic() -> dict:
+    """Phase 9d on synthetic graphs: d = 1 (the first axis searched too),
+    d = 3 (the cell layout's dimension; K = 3 axes), d = 16 (the records
+    kernel's general instance), f64 at d = 3, and degenerate clouds at d
+    = 2 and 3: every point equal (a zero covariance, every norm 0) and
+    points on a line (a covariance of rank 1)."""
+    import torch
+
+    rows = {}
+    for label, n, d, kw in (("n20000_d1", 20000, 1, {}), ("n20000_d3", 20000, 3, {}),
+                            ("n8000_d16", 8000, 16, {}), ("n20000_d3_f64", 20000, 3, dict(dtype=torch.float64)),
+                            ("n20000_d2_equal", 20000, 2, dict(cloud="equal")),
+                            ("n20000_d3_equal", 20000, 3, dict(cloud="equal")),
+                            ("n20000_d3_line", 20000, 3, dict(cloud="line"))):
+        rows[label] = compare_build(label, synthetic_build_case(n, d, seed=70 + d, **kw))
+    return rows
+
+
 def span_breakdown(impl) -> dict:
     """Milliseconds of the parts of one span step at the current positions
     and windows, by CUDA events, and the host wall of whole steps."""
@@ -1412,7 +1880,17 @@ def counters():
     from wembed_tpu_torch.kernels import edge_pass, fused_dense, span_sweep
 
     return dict(fused_dense=fused_dense.fused_dense_forces, span_sweep=span_sweep.span_sweep,
-                edge_pass=edge_pass.edge_pass)
+                edge_pass=edge_pass.edge_pass, **build_wrappers())
+
+
+def build_wrappers() -> dict:
+    """The structures build's three wrappers, which hold their counters
+    (taken from ``kernels._COUNTERS``, so ``plain_build`` does not hide
+    them)."""
+    from wembed_tpu_torch import kernels
+
+    found = {fn.__name__: fn for fn, _ in kernels._COUNTERS}
+    return {name: found[name] for name in BUILD_KERNELS}
 
 
 def reset_launches() -> None:
@@ -1479,6 +1957,7 @@ def flat_resume(name: str, graph, kernel: str, tmp: Path, make=None) -> dict:
     row = dict(
         graph=name, path=resumed.path, cap=RESUME_CAP, iterations=[saved.iteration, resumed.iteration],
         launches_after_checkpoint=[saved_launches[kernel], resumed_launches[kernel]],
+        launches_resumed=resumed_launches,
         growth_events=[saved.growth_events, resumed.growth_events],
         final_overflow=[saved.final_overflow, resumed.final_overflow],
         total_loss=[saved.get_loss().total, resumed.get_loss().total],
@@ -1578,7 +2057,7 @@ def profiled_run(name: str, graph, kernel: str, normal_wall: float, ref_total: f
     want = [(0, "Embedding")] + [(1, p) for p in (("index",) if kernel == "span_sweep" else ()) + PHASES]
     loss = embedder.getLoss()
     row = dict(
-        graph=name, iterations=iterations, launches=launches[kernel], wall_s=wall,
+        graph=name, iterations=iterations, launches=launches[kernel], launches_all=launches, wall_s=wall,
         normal_wall_s=normal_wall, total_loss=loss.total, reference_total_loss=ref_total,
         phase_ms_per_step={t.display_name: t.value * 1000.0 / iterations for t in timings[1:]},
         embedding_s=timings[0].value,
@@ -1894,6 +2373,7 @@ def girg100k_d4(generators: dict, reference: dict, tmp: Path) -> dict:
     sweeps["cells"]["layout"] = case["layout"]
     edge_cells = compare_edge_pass("girg100k_d4_cells_step20", edge_case(impl), modes=("fused", "correction"),
                                    timed=True)
+    cell_builds = {"girg100k_d4_cells_step20": compare_cell_build("girg100k_d4_cells_step20", impl)}
     st = impl.state
     windows = SpanIndex.build(impl.get_weights(), layouts["windows"], graph.csr.edge_src, graph.csr.col_idx)
     sweeps["windows"] = compare_span("girg100k_d4_windows_step20", presized_case(
@@ -1914,6 +2394,14 @@ def girg100k_d4(generators: dict, reference: dict, tmp: Path) -> dict:
         row["profile"] = layout_profile(name, impl)
         if name == "windows":
             row["edge_pass"] = edge_pass_converged("girg100k_d4_converged", impl, row["launches"]["edge_pass"])
+            st = impl.state
+            row["build"] = compare_build("girg100k_d4_converged", build_case(
+                st.positions, impl._inv_w, impl._weights, impl._dg.colors, impl._index, impl.opts), timed=True)
+            row["build_trace"] = build_trace("girg100k_d4_converged", impl)
+            row["launch_account"] = step_launch_account("girg100k_d4_converged", impl)
+            del st
+        else:
+            cell_builds["girg100k_d4_cells_converged"] = compare_cell_build("girg100k_d4_cells_converged", impl)
         runs[name] = row
         del impl
     resume = cells_resume(graph, tmp)
@@ -1923,7 +2411,7 @@ def girg100k_d4(generators: dict, reference: dict, tmp: Path) -> dict:
         **{f"{name}_sweep_share": runs[name]["profile"]["sweep_share"] for name in layouts},
     )
     print("phase13b " + json.dumps(summary))
-    return dict(sweeps=sweeps, runs=runs, resume=resume, edge_cells=edge_cells)
+    return dict(sweeps=sweeps, runs=runs, resume=resume, edge_cells=edge_cells, cell_builds=cell_builds)
 
 
 def partial_index_run(graph, tmp: Path) -> dict:
@@ -2703,6 +3191,12 @@ def run_phases(kind, generators: dict) -> int:
           f"{ {k: v for k, v in fast.items() if v != (0, 0)} }")
     check(len(general) == 4 and all(v == (0, 0) for v in general.values()),
           f"edge_pass: ptxas reports {general} for the general variant")
+    # the build's kernels: principal_axes_kernel<T, K> (4), span_records_kernel<T, D>
+    # at D = 0 ... 8 (18), span_windows_kernel<T> (2); none may spill
+    build_ptxas = ptxas_entries(infos["span_build"].log)
+    print("ptxas_span_build " + json.dumps(build_ptxas))
+    check(len(build_ptxas) == 24 and all(v["spill_stores"] == v["spill_loads"] == 0 for v in build_ptxas.values()),
+          f"span_build: ptxas reports {build_ptxas}")
 
     # ---- phase 3: the dense kernel against its plain version
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2890,10 +3384,12 @@ def run_phases(kind, generators: dict) -> int:
     check(md5 == GIRG100K_MD5, f"girg100k md5 {md5} != {GIRG100K_MD5}")
     check((n, m) == (reference["n"], reference["m"]), f"girg100k n={n} m={m}")
 
-    # ---- phase 9: the span sweep kernel against its plain version
+    # ---- phase 9: the span sweep kernel against its plain version (and,
+    # phase 9d, the structures build's kernels at the start positions)
     api.setSeed(1)
     embedder = api.createEmbedder(graph, api.Options(embeddingDimension=2))
     impl = embedder.impl
+    build_rows = build_cases_iteration0(impl)
     for _ in range(COMPARE_STEPS):
         embedder.calculateStep()
     st = impl.state
@@ -2929,6 +3425,9 @@ def run_phases(kind, generators: dict) -> int:
         adv = compare_span(f"adversarial_d{d}", adversarial_span_case(d, 40 + d), False)
         check(adv["zero_sum"][0] > 0, f"adversarial_d{d}: no coincident candidates")
 
+    # ---- phase 9d: the structures build's kernels on synthetic graphs
+    build_rows.update(build_cases_synthetic())
+
     # ---- phase 9b: the general sweep (f32 at d > 8, f64)
     for d, dtype in ((16, None), (33, None), (2, f64), (16, f64)):
         label = f"d{d}_{'f64' if dtype else 'f32'}"
@@ -2947,12 +3446,15 @@ def run_phases(kind, generators: dict) -> int:
     span_sweep.span_sweep.launches_general = 0
     edge_pass.edge_pass.launches = 0
     edge_pass.edge_pass.launches_general = 0
+    for wrapper in build_wrappers().values():
+        wrapper.launches = 0
     t0 = time.perf_counter()
     embedder.calculateEmbedding()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     span_launches = span_sweep.span_sweep.launches
     edge_launches = edge_pass.edge_pass.launches
+    build_launches = {name: w.launches for name, w in build_wrappers().items()}
     state = impl.state
     iterations = state.iteration
     loss = embedder.getLoss()
@@ -2965,7 +3467,7 @@ def run_phases(kind, generators: dict) -> int:
         "main_path_span " + json.dumps(dict(
             graph="girg100k", n=n, m=m, dim=2, seed=1, iterations=iterations,
             launches=span_launches, launches_general=span_general, edge_pass_launches=edge_launches,
-            growth_events=impl.growth_events,
+            build_launches=build_launches, growth_events=impl.growth_events,
             shrink_events=impl._shrink_events, final_work_tiles=impl._index.w,
             final_overflow=overflow, att_loss=loss.attractive, rep_loss=loss.repulsive,
             total_loss=loss.total, reference_total_loss=ref_total, wall_s=wall,
@@ -2979,6 +3481,9 @@ def run_phases(kind, generators: dict) -> int:
     check(edge_launches == iterations, f"{edge_launches} edge pass launches for {iterations} iterations")
     check(edge_pass.edge_pass.launches_general == 0, "the span main path ran the edge pass's general variant")
     check(overflow == 0, f"span path ended with overflow {overflow}")
+    # one build a step, and one more at each growth event's measurement
+    check(build_launches["span_records"] == build_launches["span_windows"] == build_launches["principal_axes"]
+          >= iterations, f"build launches {build_launches} for {iterations} iterations")
     check_finite(state, "on the span path")
     check(loss.total <= LOSS_FACTOR * ref_total, f"span total loss {loss.total} > {LOSS_FACTOR} x {ref_total}")
     span_wall = wall
@@ -2989,6 +3494,10 @@ def run_phases(kind, generators: dict) -> int:
     print("span_breakdown " + json.dumps(span_breakdown(impl)))
     print("profile_span " + json.dumps(profile_steps(impl)))
     edge_d2_converged = edge_pass_converged("girg100k_d2_converged", impl, edge_launches)
+    build_rows["girg100k_d2_converged"] = compare_build("girg100k_d2_converged", build_case(
+        state.positions, impl._inv_w, impl._weights, impl._dg.colors, impl._index, impl.opts), timed=True)
+    build_traces = {"girg100k_d2_converged": build_trace("girg100k_d2_converged", impl)}
+    step_launch_account("girg100k_d2_converged", impl)
     del embedder, impl, state
 
     # ---- phase 10c: the same run through the edge pass's plain version
@@ -3170,6 +3679,15 @@ def run_phases(kind, generators: dict) -> int:
             "bound_by": edge_d2["fused"]["bound_by"],
             "library_ms": None,  # no PyTorch call computes the masked edge pass with its tallies
         },
+        *build_kernel_entries(build_rows, build_traces, d4, dict(
+            flat=build_launches, layered=layered["launches"], profiled=profiled_span["launches_all"],
+            resumed=resume_span["launches_resumed"], resumed_layered=resume_layered["launches"],
+            partial_index=partial["launches"], f64=general_runs["girg100k_f64"]["launches"],
+            d16=general_runs["girg10k_d16_span"]["launches"], windows_d4=d4["runs"]["windows"]["launches"],
+            cells_d4=d4["runs"]["cells"]["launches"], replicated=replicated_span["launches"],
+            replicated_layered=replicated_layers["launches"], halo=halo_span["launches"],
+            halo_resident=halo_res["launches"], halo_layered=halo_layers["launches"],
+        )),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

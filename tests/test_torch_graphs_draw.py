@@ -2,6 +2,7 @@
 package's (the same inputs, the same outputs, text for text), weight
 dumping against the JAX package's lines, and debug checks."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -172,12 +173,18 @@ def test_dump_weights_lines_match_jax(tmp_path, monkeypatch):
 
 
 def test_debug_checks_raise_on_an_injected_nan():
-    _, emb = _pair(debug_checks=True, max_iterations=5)
-    emb.calculate_step()  # a clean step passes
-    emb.calculate_embedding()
-    assert emb.iteration == 5
-    bad = emb.get_coordinates()
-    bad[0, 0] = np.nan
-    emb.set_coordinates(bad)
-    with pytest.raises(FloatingPointError, match="non-finite entries in positions at iteration 6"):
-        emb.calculate_step()
+    debug_nans = jax.config.jax_debug_nans
+    try:
+        _, emb = _pair(debug_checks=True, max_iterations=5)
+        emb.calculate_step()  # a clean step passes
+        emb.calculate_embedding()
+        assert emb.iteration == 5
+        bad = emb.get_coordinates()
+        bad[0, 0] = np.nan
+        emb.set_coordinates(bad)
+        with pytest.raises(FloatingPointError, match="non-finite entries in positions at iteration 6"):
+            emb.calculate_step()
+    finally:
+        # the JAX embedder's debug_checks turn jax_debug_nans on for the
+        # whole process, where later test files' bitcasts would raise
+        jax.config.update("jax_debug_nans", debug_nans)

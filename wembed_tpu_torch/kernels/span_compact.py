@@ -58,14 +58,8 @@ import torch
 from ..core.candidates import _principal_axes3
 from ..core.edge_schedule import EdgeSchedules
 from . import span_sparse
-from .span_sparse import (
-    _Q_SENTINEL,
-    _S_SENTINEL,
-    _argsort_by,
-    _cdiv,
-    _with_record_sentinel,
-    _with_sentinel,
-)
+from .span_build import _Q_SENTINEL, _S_SENTINEL, _with_record_sentinel, _with_sentinel
+from .span_sparse import _argsort_by, _cdiv
 from .span_sweep import Q as _Q, ST as _ST, work_items
 
 _CELL_MIN = 512  # groups up to this size stay one row of one cell

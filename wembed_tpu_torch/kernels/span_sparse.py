@@ -11,11 +11,14 @@ projected-sort index, snn.cpp:97-160):
      axis.  Windows live per (query block of 256, target row) and are
      ``blk_t[i, g]`` tiles of 256 members wide; grow, resize and shrink size
      them from measured needs with the JAX package's arithmetic.
-  2. ``build_span_structures`` (torch, every step): project on the first two
+  2. ``build_span_structures`` (every step): project on the first two
      principal axes, sort by (group, first axis) then (row, second axis),
-     lay out the member and query records, place each window by a
-     searchsorted on the second axis, and report the per-window need and
-     the overflow (in-radius members beyond the windows).
+     lay out the member and query records, place each window by a binary
+     search on the second axis, and report the per-window need and the
+     overflow (in-radius members beyond the windows).  The axes, the
+     records and the windows are three CUDA kernels
+     (``kernels/span_build.py``, ``csrc/span_build.cu``); the mean, the
+     covariance, the projections and the sorts are torch.
   3. ``kernels/span_sweep.py``: the sweep of every window (the CUDA kernel),
      in work items of at most ``WORK_ITEM_TILES`` tiles that the index cuts
      from its windows (``SpanIndex.work_items``).
@@ -68,12 +71,10 @@ from ..core.candidates import _principal_axes2, doubling_weight_buckets
 from ..core.edge_schedule import EdgeSchedules
 from ..core.forces import edge_share, normal_rows
 from . import edge_pass as edges
+from . import span_build
 from .span_sweep import Q as _Q, ST as _ST, span_sweep, work_items
 
 _GROUP_MIN = 2048  # merge doubling classes until a group has this many
-_Q_SENTINEL = 1e15  # padded query position (far positive)
-_S_SENTINEL = -1e15  # padded member position (far negative; never coincides
-# with a query sentinel, so sentinel x padding pairs keep dist2 > 0)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -142,9 +143,10 @@ def _edge_tables(n: int, edge_src, edge_dst, class_bm2: np.ndarray):
 class SpanTensors(NamedTuple):
     """The index's position-independent tables on one device."""
 
-    group_of: torch.Tensor  # (n,) i64
+    group_of: torch.Tensor  # (n,) i32, the first sort's key (32 bits: half the radix passes of 64)
     class_bm2: torch.Tensor  # (n,) f32
     row_of_sorted: torch.Tensor  # (n,) i64
+    row_key: torch.Tensor  # (n,) i32 row_of_sorted, the second sort's key
     sorted_moff: torch.Tensor  # (n,) i64
     sorted_shift_q: torch.Tensor  # (n,) i64
     src_of_pad: torch.Tensor  # (NPA,) i64, n = sentinel
@@ -254,11 +256,15 @@ class SpanIndex:
             def f32(a):
                 return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
+            def i32(a):
+                return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
             edge_dst = i64(self.edge_dst)
             cached = SpanTensors(
-                group_of=i64(self.group_of),
+                group_of=i32(self.group_of),
                 class_bm2=f32(self.class_bm2),
                 row_of_sorted=i64(self.row_of_sorted),
+                row_key=i32(self.row_of_sorted),
                 sorted_moff=i64(self.sorted_moff),
                 sorted_shift_q=i64(self.sorted_shift_q),
                 src_of_pad=i64(self.src_of_pad),
@@ -269,9 +275,7 @@ class SpanIndex:
                 row_lo=i64(self.row_moff),
                 row_hi=i64(self.row_moff + self.row_sizes - 1),
                 row_tiles=i64(self.row_tiles),
-                tile_off=torch.as_tensor(
-                    (self.row_pad_off // _ST).astype(np.int32), device=device
-                ),
+                tile_off=i32(self.row_pad_off // _ST),
                 bmax_row=f32(self.bmaxpow[self.row_group]),
                 edge_src=i64(self.edge_src),
                 edge_dst=edge_dst,
@@ -284,6 +288,18 @@ class SpanIndex:
             )
             self._tensors[key] = cached
         return cached
+
+    def lwpow(self, weights: torch.Tensor, dtype: torch.dtype, edge_length: float) -> torch.Tensor:
+        """(n,) L * w^(1/d) in ``dtype``: made once for a weights tensor and
+        kept beside the device tables (new weights make a new tensor, and
+        drop a captured step, whose first eager step makes this one)."""
+        key = ("lwpow", str(weights.device))
+        hit = self._tensors.get(key)
+        if hit is None or hit[0] is not weights or hit[1] != (weights._version, dtype, edge_length):
+            lw = edge_length * torch.pow(weights.to(dtype), 1.0 / self.d)
+            hit = (weights, (weights._version, dtype, edge_length), lw)
+            self._tensors[key] = hit
+        return hit[2]
 
     @property
     def partial(self) -> bool:
@@ -568,23 +584,6 @@ class SpanStructures(NamedTuple):
         return (rank >= lo) & (rank < hi)
 
 
-def _with_sentinel(rows: torch.Tensor, value) -> torch.Tensor:
-    """``rows`` and one more row ``value`` at index n, which padding slots
-    read; made on the device (a host tensor would cost a synchronising
-    copy every step)."""
-    extra = torch.full((1, *rows.shape[1:]), value, dtype=rows.dtype, device=rows.device)
-    return torch.cat([rows, extra])
-
-
-def _with_record_sentinel(rows: torch.Tensor, position: float) -> torch.Tensor:
-    """(n, d+3) records and a sentinel record at index n: far away at
-    ``position``, invw 1, radius factor and 1/invw 0."""
-    extra = torch.zeros((1, rows.shape[1]), dtype=rows.dtype, device=rows.device)
-    extra[:, : rows.shape[1] - 3] = position
-    extra[:, rows.shape[1] - 3] = 1.0
-    return torch.cat([rows, extra])
-
-
 def _argsort_by(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
     """The permutation sorting by (major, minor), ties in index order: two
     stable sorts, the order ``jnp.lexsort((minor, major))`` gives."""
@@ -614,13 +613,12 @@ def build_span_structures(
     in-radius members beyond the windows whether sampled or not: a
     conservative count, so the windows may grow where the JAX package's
     spans would not, though the sampled set within them is the same."""
-    n, d = positions.shape
+    d = positions.shape[1]
     dtype, device = positions.dtype, positions.device
     t = idx.tensors(device)
-    L = float(opts.edge_length)
-    nb = idx.nb
     if blk_t is None:
         blk_t = idx.blk_t_tensor(device)
+    blk_t = blk_t.to(torch.int32).contiguous()
 
     centered = positions - torch.mean(positions, dim=0)
     v1, v2 = _principal_axes2(centered)
@@ -630,90 +628,22 @@ def build_span_structures(
     # sort 1: (group, y) gives each vertex's first-axis rank, hence its row;
     # sort 2: (row, x), composed so no inverse is needed
     order1 = _argsort_by(y, t.group_of)
-    order = order1[_argsort_by(x[order1], t.row_of_sorted)]
+    order = order1[_argsort_by(x[order1], t.row_key)]
 
-    lwpow = L * torch.pow(weights.to(dtype), 1.0 / d)
-    pos_s = positions[order]
-    invw_s = inv_w.to(dtype)[order]
-    lwpow_s = lwpow[order]
-    col_s = colors[order]
-    x_s = x[order]
-    y_ord = y[order]
-    rawexp_s = 1.0 / invw_s
-
-    # ---- records, gathered through the static slot maps
-    mpos_s, bm2_s = pos_s, t.class_bm2.to(dtype)[order]
-    if in_index is not None:
-        member = in_index[order]
-        mpos_s = torch.where(member[:, None], pos_s, _S_SENTINEL)
-        bm2_s = torch.where(member, bm2_s, 0.0)
-    svals = torch.cat([mpos_s, invw_s[:, None], bm2_s[:, None], rawexp_s[:, None]], dim=1)
-    srec = _with_record_sentinel(svals, _S_SENTINEL)[t.src_of_pad]
-    qvals = torch.cat(
-        [pos_s, invw_s[:, None], (lwpow_s * lwpow_s)[:, None], rawexp_s[:, None]], dim=1
-    )
-    qrec = _with_record_sentinel(qvals, _Q_SENTINEL)[t.src_of_q]
-    scol = _with_sentinel(col_s, -3)[t.src_of_pad].to(torch.int32)
-    qcol = _with_sentinel(col_s, -2)[t.src_of_q].to(torch.int32)
-
-    # ---- per-block conservative windows in both axes.  A block is a
-    # contiguous rank range of its row, so its second-axis extrema sit at
-    # static first/last ranks; its first-axis extrema need a masked
-    # reduction.  Row first-axis extrema sit at static ranks of sort 1.
-    minx = x_s[t.blk_first]
-    maxx = x_s[t.blk_last]
-    maxlw = _with_sentinel(lwpow_s, 0.0)[t.src_of_q].view(nb, _Q).amax(dim=1)
-    qmask = (t.src_of_q < n).view(nb, _Q)
-    y_q = _with_sentinel(y_ord, 0.0)[t.src_of_q].view(nb, _Q)
-    big = torch.finfo(dtype).max
-    ymin_blk = torch.where(qmask, y_q, big).amin(dim=1)
-    ymax_blk = torch.where(qmask, y_q, -big).amax(dim=1)
-    row_ymin = y[order1[t.row_lo]]
-    row_ymax = y[order1[t.row_hi]]
-
-    reach = maxlw[:, None] * t.bmax_row.to(dtype)[None, :]  # (NB, R)
-    overlap = (ymin_blk[:, None] - reach <= row_ymax[None, :]) & (
-        ymax_blk[:, None] + reach >= row_ymin[None, :]
-    )
-    lo = minx[:, None] - reach
-    hi = maxx[:, None] + reach
-    # every bound in one batched search over the rows' sorted second-axis
-    # values, +inf past each row's end
-    xrows = _with_sentinel(x_s, float("inf"))[t.row_grid]  # (R, max row size)
-    start = torch.searchsorted(xrows, lo.T.contiguous(), side="left").T
-    stop = torch.searchsorted(xrows, hi.T.contiguous(), side="right").T
-    start = torch.where(overlap, start, 0)
-    stop = torch.where(overlap, stop, 0)
-
-    # slide the T-tile window to cover [start, stop) when it can: end at
-    # ceil(stop/ST), never start after floor(start/ST), stay inside the row
-    t_blk = blk_t.to(torch.int64)
-    start_tile = torch.minimum((stop + _ST - 1) // _ST - t_blk, start // _ST)
-    start_tile = torch.minimum(torch.clamp_min(start_tile, 0), t.row_tiles[None, :] - t_blk)
-    cov_end = (start_tile + t_blk) * _ST
-    # per-window overflow bounded by the real need (stop - start): a window
-    # shrunk to 0 tiles with no member in range reports none
-    overflow = torch.sum(torch.clamp_min(torch.minimum(stop - cov_end, stop - start), 0))
-    need = torch.where(stop > start, stop - (start // _ST) * _ST, 0)
-
-    # inverse maps: row-local rank, query block, query slot and row of each
-    # vertex, one index write through the permutation ``order``
-    j = torch.arange(n, device=device)
-    q_idx = j + t.sorted_shift_q
-    inv = torch.empty((n, 4), dtype=torch.int64, device=device)
-    inv[order] = torch.stack([j - t.sorted_moff, q_idx // _Q, q_idx, t.row_of_sorted], dim=1)
-
+    lwpow = idx.lwpow(weights, dtype, float(opts.edge_length))
+    rec = span_build.span_records(order, positions, inv_w.to(dtype), lwpow, colors, x, y, t, in_index)
+    start_tile, need, overflow = span_build.span_windows(rec.sorted, y, order1, t, blk_t)
     return SpanStructures(
-        qrec=qrec.contiguous(),
-        qcol=qcol,
-        srec=srec.contiguous(),
-        scol=scol,
-        blk_t=blk_t.to(torch.int32).contiguous(),
-        start_tile=start_tile.to(torch.int32),
-        rank_of=inv[:, 0],
-        block_of=inv[:, 1],
-        slot_of=inv[:, 2],
-        row_of=inv[:, 3],
+        qrec=rec.qrec,
+        qcol=rec.qcol,
+        srec=rec.srec,
+        scol=rec.scol,
+        blk_t=blk_t,
+        start_tile=start_tile,
+        rank_of=rec.inv[:, 0],
+        block_of=rec.inv[:, 1],
+        slot_of=rec.inv[:, 2],
+        row_of=rec.inv[:, 3],
         lwpow=lwpow,
         overflow=overflow,
         need=need,
