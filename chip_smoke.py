@@ -77,19 +77,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      13b, timed), and converged girg100k d=2 (phase 10) and d=4 (phase
      13b): an ``edge_pass_converged`` line each (ms a call, bound, share,
      the run's launches);
- 9d. hold the structures build's three kernels (``kernels/span_build.py``:
-     the principal axes, K = 2 and 3; the records; the windows) against
+ 9d. hold the structures build's kernels (``kernels/span_build.py``: the
+     principal frame's three, K = 2 and 3, from the positions; the axes
+     kernel, K = 2 and 3, on their covariance, which the frame takes at d
+     > 8; the records, from the static vertex rows; the windows) against
      their plain versions on the card, bitwise, each on the inputs the
      build hands it, and the whole build through the kernels against the
      build through the plain versions (every field bitwise, one launch of
-     each kernel): girg100k d=2 at its start positions (timed), in f64
-     (timed) and with a partial index; synthetic graphs at d = 1, 3 and
-     16, in f64 at d = 3, and degenerate clouds (every point equal, points
-     on a line); converged girg100k d=2 (phase 10) and d=4 (phase 13b),
-     timed, with a ``build_trace`` line each (the kernels a build
-     launches, through the kernels and through the plain versions, at most
-     BUILD_LAUNCH_LIMIT) and a ``step_launch_account`` (a replayed step's
-     events by phase); the cell layout's build (K = 3 axes) in phase 13b;
+     each kernel of the route): girg100k d=2 at its start positions
+     (timed), in f64 (timed) and with a partial index; synthetic graphs at
+     d = 1, 3 and 16 (the general route), in f64 at d = 3, and degenerate
+     clouds (every point equal, points on a line); converged girg100k d=2
+     (phase 10) and d=4 (phase 13b), timed (each wrapper and each of the
+     frame's kernels from graph replays, beside the parent's frame route),
+     with a ``build_trace`` line each (the kernels a build launches,
+     through the kernels and through the plain versions, at most
+     BUILD_LAUNCH_LIMIT, three for the frame and no cuBLAS product) and a
+     ``step_launch_account`` (a replayed step's events by phase); the cell
+     layout's build (the frame at K = 3) in phase 13b;
  10. the span main path: the API on girg100k, d=2, seed 1,
      ``calculateEmbedding()``: below 1000 iterations, one sweep launch and
      one edge pass launch per iteration, one launch of each build kernel
@@ -224,9 +229,10 @@ CELLS_RESUME = 60  # steps on each side of the cells checkpoint
 GIRG100K_LAYERS = (4, 22, 133, 713, 3699)  # its dense coarse layers (seed 1, default partitioner)
 REFERENCE = REPO / "baselines" / "reference_measured.json"
 KERNELS = ("fused_dense", "span_sweep", "edge_pass", "span_build")
-BUILD_KERNELS = ("principal_axes", "span_records", "span_windows")  # csrc/span_build.cu's wrappers
+BUILD_KERNELS = ("principal_frame", "principal_axes", "span_records", "span_windows")  # csrc/span_build.cu's wrappers
+FRAME_KERNELS = ("frame_mean_kernel", "frame_axes_kernel", "frame_project_kernel")  # principal_frame's, d <= 8
 BUILD_TRACE_BUILDS = 10  # structures builds in each traced window of build_trace
-BUILD_LAUNCH_LIMIT = 60  # most kernels a structures build may launch, sorts and axes included
+BUILD_LAUNCH_LIMIT = 41  # most kernels a structures build may launch, sorts and frame included
 EDGE_MODES = ("fused", "correction", "attraction")  # kernels/edge_pass.py MODES
 HOST_SOURCES = ("labelprop",)  # host C++ of the layered path, built with g++ beside the kernels
 LOSS_FACTOR = 1.15  # total loss may exceed the C++ reference's by at most this
@@ -282,10 +288,9 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of ``fn`` over ``reps`` replays of a
-    CUDA graph of one call, by CUDA events: the device's time, without the
-    host's work between calls (a wrapper's checks and ctypes call)."""
+def captured(fn):
+    """A CUDA graph of one call of ``fn`` (after one eager call on a side
+    stream), replayed once."""
     import torch
 
     side = torch.cuda.Stream()
@@ -298,6 +303,16 @@ def graph_ms(fn, reps: int) -> float:
         fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of ``fn`` over ``reps`` replays of a
+    CUDA graph of one call, by CUDA events: the device's time, without the
+    host's work between calls (a wrapper's checks and ctypes call)."""
+    import torch
+
+    graph = captured(fn)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1352,21 +1367,22 @@ def plain_edge_pass_run(graph, single: dict, kernel_map: float) -> dict:
 
 def plain_build():
     """A context in which the structures build runs its kernels' plain
-    versions (the build as torch operations, as the parent ran it): the
-    callers reach the three wrappers through ``kernels.span_build``."""
+    versions (the build as torch operations): the callers reach the four
+    wrappers through ``kernels.span_build``."""
     import contextlib
 
     from wembed_tpu_torch.kernels import span_build as sb
 
     @contextlib.contextmanager
     def swapped():
-        saved = (sb.principal_axes, sb.span_records, sb.span_windows)
-        sb.principal_axes, sb.span_records, sb.span_windows = (
-            sb.principal_axes_reference, sb.span_records_reference, sb.span_windows_reference)
+        saved = (sb.principal_frame, sb.principal_axes, sb.span_records, sb.span_windows)
+        sb.principal_frame, sb.principal_axes, sb.span_records, sb.span_windows = (
+            sb.principal_frame_reference, sb.principal_axes_reference, sb.span_records_reference,
+            sb.span_windows_reference)
         try:
             yield
         finally:
-            sb.principal_axes, sb.span_records, sb.span_windows = saved
+            sb.principal_frame, sb.principal_axes, sb.span_records, sb.span_windows = saved
 
     return swapped()
 
@@ -1426,14 +1442,22 @@ def synthetic_build_case(n: int, d: int, seed: int, dtype=None, cloud: str = "un
 
 def build_bounds(case: dict, nb: int, rr: int, max_row: int) -> dict:
     """(least ms, "bytes" or "operations") of each build kernel at this
-    case: its inputs read once and outputs written once over HBM, its
-    operations over the FP32 (FP64) rate.  The axes: the covariance and
-    the axes, 12 products and norms an axis; the records: the vertex
-    tables and slot maps in, the records, colours, inverse maps and sorted
-    values out; the windows: the slot map, the sorted values, the block
-    and row tables and the widths in (of the first sort and the first-axis
-    values only a row's two ends), the start tiles and needs out, two
-    binary searches of log2(longest row) steps a window."""
+    case: the inputs it reads, each once, and its outputs written once,
+    over HBM, its operations over the FP32 (FP64) rate.  The frame (K =
+    2): the positions in, the two projections out, the tree sums' adds and
+    products, the axes' 12 power steps an axis (each of its three kernels
+    apart too: the mean and the covariance read the positions, the
+    projections read them and write the projections); the axes on a
+    covariance: the covariance and the axes; the records: the permutation,
+    the positions, what the function needs of each vertex (its inverse
+    weight and L w^(1/d), its int32 colour and f32 bm2: the packed row's
+    derived values are the kernel's choice, not the function's), the
+    projections, the int32 slot maps (and the member sample) in, the
+    records, colours, inverse maps and sorted values out; the windows: the
+    slot map, the sorted values, the block and row tables and the widths in
+    (of the first sort and the first-axis values only a row's two ends),
+    the start tiles and needs out, two binary searches of log2(longest row)
+    steps a window."""
     import math
 
     from wembed_tpu_torch.kernels import span_build as sb
@@ -1444,33 +1468,80 @@ def build_bounds(case: dict, nb: int, rr: int, max_row: int) -> dict:
     f64 = T == 8
     idx = case["idx"]
     nq, npa = idx.nq, idx.npa
+    upper = d * (d + 1) // 2
     axes_flop = 2 * (sb.ITERS * (2 * d * d + 2 * d) + 2 * d * d + 6 * d)
-    records_in = n * 8 + n * d * T + 4 * n * T + n * 8 + (n if case.get("in_index") is not None else 0) + (
-        nq + npa) * 8 + 3 * n * 8
+    frame = dict(
+        frame_mean_kernel=bound(n * d, n * d * T + d * T, f64),
+        frame_axes_kernel=bound(n * (d + 2 * upper) + axes_flop, n * d * T + 3 * d * T, f64),
+        frame_project_kernel=bound(n * (d + 2 * 2 * d), n * d * T + 2 * n * T, f64),
+    )
+    records_in = n * 8 + n * d * T + 2 * n * T + 2 * 4 * n + 2 * n * T + (nq + npa) * 4 + 3 * n * 4 + (
+        n if case.get("in_index") is not None else 0)
     records_out = (nq + npa) * ((d + 3) * T + 4) + n * 32 + 3 * n * T
-    windows_in = nq * 8 + 3 * n * T + 2 * nb * 8 + rr * 28 + nb * rr * 4 + 2 * rr * (8 + T)
+    windows_in = nq * 4 + 3 * n * T + 2 * nb * 8 + rr * 28 + nb * rr * 4 + 2 * rr * (8 + T)
     windows_out = nb * rr * 12 + 8
     searches = 2 * math.ceil(math.log2(max_row + 1))
     return dict(
+        principal_frame=bound(n * (2 * d + 2 * upper + 4 * d) + axes_flop, n * d * T + 2 * n * T, f64),
         principal_axes=bound(axes_flop, (d * d + 2 * d) * T, f64),
         span_records=bound(2 * (nq + npa), records_in + records_out, f64),
         span_windows=bound(nb * rr * (searches + 12), windows_in + windows_out, f64),
+        frame_kernels=frame,
     )
 
 
+def replay_ms(fn, reps: int) -> float:
+    """``graph_ms``, with the capture's wrapper calls (which launched
+    nothing) taken back off the build's counters."""
+    wrappers = build_wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    ms = graph_ms(fn, reps)
+    for k, w in wrappers.items():
+        w.launches -= (w.launches - before[k]) // 2
+    return ms
+
+
+def replay_kernel_ms(fn, reps: int) -> dict:
+    """{kernel name: device ms a call} of the kernels one call of ``fn``
+    launches, from a ``torch.profiler`` trace of ``reps`` replays of a CUDA
+    graph of it (capture bookkeeping as ``replay_ms``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    wrappers = build_wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    graph = captured(fn)
+    for k, w in wrappers.items():
+        w.launches -= (w.launches - before[k]) // 2
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = e.name.split("<")[0].split("(")[0].split("::")[-1].removeprefix("void ")[:60]
+            out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / 1000.0 / reps
+    return out
+
+
 def compare_build(name: str, case: dict, timed: bool = False) -> dict:
-    """The structures build's three kernels against their plain versions on
-    the card, each on the inputs the build hands it at these tensors:
-    ``principal_axes`` (K = 2, and the cell layout's K = 3) on the
-    covariance, ``span_records`` on the permutation that the kernel's axes
-    give, ``span_windows`` on its records; every output bitwise equal, one
-    launch a call, two launches bitwise alike.  Then the whole build
-    through the kernels against the build through the plain versions (the
-    parent's build, no kernel launched): every field bitwise equal, one
-    launch of each kernel.  ``timed``: ms a call of each kernel and of the
-    whole build replayed from a CUDA graph (``graph_ms``), of the plain
-    versions by CUDA events around eager calls, each kernel's bound and
-    share."""
+    """The structures build's kernels against their plain versions on the
+    card, each on the inputs the build hands it at these tensors:
+    ``principal_frame`` (K = 2 and the cell layout's K = 3; its three
+    kernels at d <= 8, the general route through ``principal_axes`` above)
+    on the positions, ``principal_axes`` (K = 2, 3) on their covariance,
+    ``span_records`` on the permutation that the frame's projections give,
+    ``span_windows`` on its records; every output bitwise equal, one launch
+    a call, two launches bitwise alike.  Then the whole build through the
+    kernels against the build through the plain versions (the parent's
+    build, no kernel launched): every field bitwise equal, one launch of
+    each kernel of the route.  ``timed``: ms a call of each wrapper and of
+    the whole build replayed from a CUDA graph (``graph_ms``), of each of
+    the frame's kernels and of the parent's frame (torch's mean, centring,
+    covariance product and projections around ``principal_axes``) from a
+    trace of replays, of the plain versions by CUDA events around eager
+    calls, each bound and share."""
     import torch
 
     from wembed_tpu_torch.kernels import span_build as sb
@@ -1480,11 +1551,13 @@ def compare_build(name: str, case: dict, timed: bool = False) -> dict:
     in_index = case["in_index"]
     n, d = pos.shape
     dtype, dev = pos.dtype, pos.device
+    fast = d <= sb.MAX_FAST_DIM
+    frame_route = "principal_frame" if fast else "principal_axes"
     t = idx.tensors(dev)
     blk = idx.blk_t_tensor(dev)
     wrappers = build_wrappers()
     row = dict(case=name, n=n, d=d, dtype=str(dtype).split(".")[1], partial=in_index is not None,
-               rows=idx.num_rows, blocks=idx.nb, max_row=int(t.row_grid.shape[1]))
+               rows=idx.num_rows, blocks=idx.nb, max_row=int(t.row_grid.shape[1]), frame_route=frame_route)
 
     def launched(what, fn):
         before = wrappers[what].launches
@@ -1503,13 +1576,19 @@ def compare_build(name: str, case: dict, timed: bool = False) -> dict:
         row[f"axes{k}_bitwise"] = bitwise(got, want)
         row[f"axes{k}_finite"] = bool(torch.isfinite(got).all())
         err["principal_axes"] = max(err.get("principal_axes", 0.0), max_abs_diff([got], [want]))
-    axes = sb.principal_axes(cov, 2)
-    y = centered @ axes[0]
-    x = centered @ axes[1] if d >= 2 else y
+        frame = launched(frame_route, lambda: sb.principal_frame(pos, k))
+        same_twice(f"{name}_frame{k}", list(frame), lambda: list(sb.principal_frame(pos, k)))
+        frame_p = sb.principal_frame_reference(pos, k)
+        row[f"frame{k}_bitwise"] = all(bitwise(a, b) for a, b in zip(frame, frame_p))
+        row[f"frame{k}_finite"] = all(bool(torch.isfinite(a).all()) for a in frame)
+        err["principal_frame"] = max(err.get("principal_frame", 0.0), max_abs_diff(frame, frame_p))
+    _, proj = sb.principal_frame(pos, 2)
+    y = proj[0]
+    x = proj[1] if d >= 2 else y
     order1 = span_sparse._argsort_by(y, t.group_of)
     order = order1[span_sparse._argsort_by(x[order1], t.row_key)]
-    lwpow = idx.lwpow(weights, dtype, float(opts.edge_length))
-    rargs = (order, pos, inv_w.to(dtype), lwpow, colors, x, y, t, in_index)
+    vrec = idx.vertex_records(weights, inv_w, colors, dtype, float(opts.edge_length))
+    rargs = (order, pos, vrec, x, y, t, in_index)
     rec = launched("span_records", lambda: sb.span_records(*rargs))
     same_twice(f"{name}_records", list(rec), lambda: list(sb.span_records(*rargs)))
     rec_p = sb.span_records_reference(*rargs)
@@ -1538,30 +1617,41 @@ def compare_build(name: str, case: dict, timed: bool = False) -> dict:
     row["build_bitwise"] = {f: bitwise(getattr(s_k, f), getattr(s_p, f)) for f in s_k._fields}
     if timed:
         bounds = build_bounds(case, idx.nb, idx.num_rows, row["max_row"])
-        calls = dict(principal_axes=(lambda: sb.principal_axes(cov, 2), lambda: sb.principal_axes_reference(cov, 2)),
+        calls = dict(principal_frame=(lambda: sb.principal_frame(pos, 2), lambda: sb.principal_frame_reference(pos, 2)),
+                     principal_axes=(lambda: sb.principal_axes(cov, 2), lambda: sb.principal_axes_reference(cov, 2)),
                      span_records=(lambda: sb.span_records(*rargs), lambda: sb.span_records_reference(*rargs)),
                      span_windows=(lambda: sb.span_windows(*wargs), lambda: sb.span_windows_reference(*wargs)))
         timing = {}
         for what, (kernel, plain) in calls.items():
-            ms = graph_ms(kernel, 50)
-            wrappers[what].launches -= 1  # of graph_ms's two calls, the capture's launched nothing
+            ms = replay_ms(kernel, 50)
             bound_ms, bound_by = bounds[what]
             timing[what] = dict(ms=ms, plain_ms=cuda_ms(plain, 5), bound_ms=bound_ms, bound_by=bound_by,
                                 share=bound_ms / ms)
+        kernel_ms = replay_kernel_ms(lambda: sb.principal_frame(pos, 2), 50)
+        timing["principal_frame"]["kernels"] = {
+            k: dict(ms=kernel_ms.get(k), bound_ms=bounds["frame_kernels"][k][0],
+                    bound_by=bounds["frame_kernels"][k][1],
+                    share=bounds["frame_kernels"][k][0] / kernel_ms[k] if kernel_ms.get(k) else None)
+            for k in FRAME_KERNELS}
+        def parent_frame():  # the parent's route: torch's mean, centring, covariance and projections
+            return sb._general_frame(pos, 2, sb.ITERS, sb.principal_axes)
+
+        timing["parent_frame"] = dict(ms=replay_ms(parent_frame, 50), kernels=replay_kernel_ms(parent_frame, 50))
         row["timing"] = timing
-        row["build_ms"] = graph_ms(lambda: idx.structures(pos, inv_w, weights, colors, opts, blk, in_index), 20)
-        for w in wrappers.values():
-            w.launches -= 1
+        row["build_ms"] = replay_ms(lambda: idx.structures(pos, inv_w, weights, colors, opts, blk, in_index), 20)
         with plain_build():
             row["plain_build_ms"] = cuda_ms(lambda: idx.structures(pos, inv_w, weights, colors, opts, blk, in_index), 5)
     print("compare_build " + json.dumps(row))
     for k in (2, 3):
         check(row[f"axes{k}_bitwise"], f"{name}: principal_axes (K = {k}) differs from its plain version")
         check(row[f"axes{k}_finite"], f"{name}: principal_axes (K = {k}) is not finite")
+        check(row[f"frame{k}_bitwise"], f"{name}: principal_frame (K = {k}) differs from its plain version")
+        check(row[f"frame{k}_finite"], f"{name}: principal_frame (K = {k}) is not finite")
     check(row["records_bitwise"], f"{name}: span_records differs from its plain version")
     check(row["windows_bitwise"], f"{name}: span_windows differs from its plain version")
     check(all(row["build_bitwise"].values()), f"{name}: the build differs from the plain build: {row['build_bitwise']}")
-    check(all(v == 1 for v in row["build_launches"].values()), f"{name}: build launches {row['build_launches']}")
+    want = dict(principal_frame=int(fast), principal_axes=int(not fast), span_records=1, span_windows=1)
+    check(row["build_launches"] == want, f"{name}: build launches {row['build_launches']}")
     check(not any(row["plain_build_launches"].values()), f"{name}: the plain build launched a kernel")
     if in_index is not None:
         check(row["non_members"] > 0, f"{name}: the member sample left no vertex out")
@@ -1570,7 +1660,7 @@ def compare_build(name: str, case: dict, timed: bool = False) -> dict:
 
 def compare_cell_build(name: str, impl) -> dict:
     """The cell layout's build at a cells embedder's positions and
-    capacities, through ``principal_axes`` (K = 3, one launch) against the
+    capacities, through ``principal_frame`` (K = 3, one call) against the
     build through its plain version: every field bitwise equal."""
     import torch
 
@@ -1586,7 +1676,8 @@ def compare_cell_build(name: str, impl) -> dict:
                bitwise={f: bitwise(getattr(s_k, f), getattr(s_p, f)) for f in s_k._fields})
     print("compare_cell_build " + json.dumps(row))
     check(impl.span_layout == "cells", f"{name}: not the cell layout")
-    check(launches == dict(principal_axes=1, span_records=0, span_windows=0), f"{name}: launches {launches}")
+    check(launches == dict(principal_frame=1, principal_axes=0, span_records=0, span_windows=0),
+          f"{name}: launches {launches}")
     check(all(row["bitwise"].values()), f"{name}: the cell build differs from the plain build: {row['bitwise']}")
     return row
 
@@ -1597,7 +1688,8 @@ def build_trace(name: str, impl) -> dict:
     builds: through the hand kernels, and through their plain versions
     (the parent's route); each route's device ms a build and its most
     frequent kernels.  A build through the kernels may launch at most
-    BUILD_LAUNCH_LIMIT kernels, its sorts included."""
+    BUILD_LAUNCH_LIMIT kernels, its sorts included, and no cuBLAS product
+    (the frame's covariance and projections are its own kernels)."""
     import contextlib
 
     import torch
@@ -1627,15 +1719,23 @@ def build_trace(name: str, impl) -> dict:
             kernels_per_build=kernels_n / BUILD_TRACE_BUILDS, copies_per_build=copies / BUILD_TRACE_BUILDS,
             device_ms_per_build=device_ms / BUILD_TRACE_BUILDS,
             top_kernels_per_build={k: v / BUILD_TRACE_BUILDS for k, v in top},
+            products=sorted(k for k in names if "gemm" in k or "gemv" in k),
+            frame_kernels_per_build=sum(v for k, v in names.items() if any(f in k for f in FRAME_KERNELS))
+            / BUILD_TRACE_BUILDS,
         )
     row = dict(case=name, **routes)
     print("build_trace " + json.dumps(row))
     k = routes["kernels"]["kernels_per_build"]
     check(0 < k <= BUILD_LAUNCH_LIMIT, f"{name}: a structures build launched {k} kernels")
+    check(not routes["kernels"]["products"], f"{name}: the build ran a cuBLAS product: {routes['kernels']['products']}")
+    # a trace may miss its first launches, so a build shows at most, not exactly, three
+    check(0 < routes["kernels"]["frame_kernels_per_build"] <= len(FRAME_KERNELS),
+          f"{name}: the frame took {routes['kernels']['frame_kernels_per_build']} launches a build")
     return row
 
 
 BUILD_REPLACES = dict(  # the JAX lines each build kernel stands for (plain jnp, not Pallas)
+    principal_frame="wembed_tpu/kernels/span_sparse.py:977",
     principal_axes="wembed_tpu/core/candidates.py:409",
     span_records="wembed_tpu/kernels/span_sparse.py:995",
     span_windows="wembed_tpu/kernels/span_sparse.py:1159",
@@ -1643,16 +1743,23 @@ BUILD_REPLACES = dict(  # the JAX lines each build kernel stands for (plain jnp,
 
 
 def build_kernel_entries(rows: dict, traces: dict, d4: dict, paths: dict) -> list[dict]:
-    """The kernels line's entries of the structures build's three kernels:
-    launches on the flat span main path and on every other path that ran
-    them, the times, bound and error at converged girg100k d=2 (d=4 and the
-    start positions beside them), and the build's kernels a call in the
-    traces, through the kernels and through the plain versions."""
+    """The kernels line's entries of the structures build's four wrappers
+    (the frame's three kernels one entry; the axes kernel the frame's
+    general route, d > 8): launches on the flat span main path and on every
+    other path that ran them, the times, bound and error at converged
+    girg100k d=2 (d=4 and the start positions beside them), and the
+    build's kernels a call in the traces, through the kernels and through
+    the plain versions."""
     conv = rows["girg100k_d2_converged"]
     entries = []
     for name in BUILD_KERNELS:
         timing = conv["timing"][name]
+        if name == "principal_frame":
+            extra = dict(kernels=timing["kernels"], parent_frame=conv["timing"]["parent_frame"])
+        else:
+            extra = {}
         entries.append({
+            **extra,
             "name": name,
             "route": "cuda",
             "source": "wembed_tpu_torch/csrc/span_build.cu",
@@ -1679,7 +1786,7 @@ def build_kernel_entries(rows: dict, traces: dict, d4: dict, paths: dict) -> lis
 
 LAUNCH_PHASES = (  # name patterns of a span step's device events, in the order they are tried
     ("copies", ("Memcpy", "Memset", "memset", "memcpy")),
-    ("build_kernels", ("principal_axes_kernel", "span_records_kernel", "span_windows_kernel")),
+    ("build_kernels", ("principal_axes_kernel", "span_records_kernel", "span_windows_kernel", *FRAME_KERNELS)),
     ("sorts", ("RadixSort", "fill_reverse", "radix_sort", "sort_")),
     ("sweep", ("span_sweep_kernel", "span_reduce_kernel", "span_sweep_general", "span_reduce_general")),
     ("edge_pass", ("segment_pass_kernel", "edge_pass_kernel", "edge_segment_kernel")),
@@ -3191,11 +3298,13 @@ def run_phases(kind, generators: dict) -> int:
           f"{ {k: v for k, v in fast.items() if v != (0, 0)} }")
     check(len(general) == 4 and all(v == (0, 0) for v in general.values()),
           f"edge_pass: ptxas reports {general} for the general variant")
-    # the build's kernels: principal_axes_kernel<T, K> (4), span_records_kernel<T, D>
-    # at D = 0 ... 8 (18), span_windows_kernel<T> (2); none may spill
+    # the build's kernels: frame_mean_kernel, frame_axes_kernel and
+    # frame_project_kernel <T, D> at D = 1 ... 8 (48), principal_axes_kernel<T, K>
+    # (4), span_records_kernel<T, D> at D = 0 ... 8 (18), span_windows_kernel<T>
+    # (2); none may spill
     build_ptxas = ptxas_entries(infos["span_build"].log)
     print("ptxas_span_build " + json.dumps(build_ptxas))
-    check(len(build_ptxas) == 24 and all(v["spill_stores"] == v["spill_loads"] == 0 for v in build_ptxas.values()),
+    check(len(build_ptxas) == 72 and all(v["spill_stores"] == v["spill_loads"] == 0 for v in build_ptxas.values()),
           f"span_build: ptxas reports {build_ptxas}")
 
     # ---- phase 3: the dense kernel against its plain version
@@ -3482,8 +3591,9 @@ def run_phases(kind, generators: dict) -> int:
     check(edge_pass.edge_pass.launches_general == 0, "the span main path ran the edge pass's general variant")
     check(overflow == 0, f"span path ended with overflow {overflow}")
     # one build a step, and one more at each growth event's measurement
-    check(build_launches["span_records"] == build_launches["span_windows"] == build_launches["principal_axes"]
-          >= iterations, f"build launches {build_launches} for {iterations} iterations")
+    check(build_launches["span_records"] == build_launches["span_windows"] == build_launches["principal_frame"]
+          >= iterations and build_launches["principal_axes"] == 0,
+          f"build launches {build_launches} for {iterations} iterations")
     check_finite(state, "on the span path")
     check(loss.total <= LOSS_FACTOR * ref_total, f"span total loss {loss.total} > {LOSS_FACTOR} x {ref_total}")
     span_wall = wall

@@ -326,3 +326,39 @@ def test_cli_layered(tmp_path):
     coords = io.read_coordinates(str(out))
     assert coords.shape == (5, 3)  # two coordinates and the weight
     assert np.isfinite(coords).all()
+
+
+def _fields(cls) -> dict:
+    """{name: default} of a dataclass; an enum default as its class name,
+    member name and value (each package declares its own enums)."""
+    import dataclasses
+    import enum
+
+    def plain(v):
+        return (type(v).__name__, v.name, v.value) if isinstance(v, enum.Enum) else v
+
+    return {f.name: plain(f.default) for f in dataclasses.fields(cls)}
+
+
+@pytest.mark.parametrize(
+    "port,reference,omitted",
+    [
+        (PartitionerOptions, JaxPartitionerOptions, set()),
+        # the JAX package's TPU kernel switches and its chunked dense path's
+        # row block, which the port leaves out (core/options.py)
+        (EmbedderOptions, JaxOptions, {"fused_dense", "fused_span", "block_size"}),
+    ],
+)
+def test_options_take_the_reference_fields(port, reference, omitted):
+    """The port's options dataclasses declare the JAX package's fields, in
+    name and default, less the documented omissions; so a call written
+    against the reference's constructor builds on the port."""
+    got, want = _fields(port), _fields(reference)
+    assert omitted <= set(want) and not omitted & set(got)
+    assert got == {k: v for k, v in want.items() if k not in omitted}
+    assert port(**{f: getattr(port(), f) for f in got}) == port()
+
+
+def test_partitioner_options_take_num_hierarchies():
+    assert PartitionerOptions(num_hierarchies=2).num_hierarchies == 2
+    assert PartitionerOptions().num_hierarchies == JaxPartitionerOptions().num_hierarchies == 1

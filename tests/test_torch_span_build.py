@@ -311,20 +311,19 @@ def _pieces(c: Case, dtype=F64, in_index=None):
     """The wrappers' inputs at the case's positions, as the build makes them."""
     pos, inv_w, w, colors = c.torch_args(dtype)
     t = c.idx.tensors(torch.device("cpu"))
-    centered = pos - pos.mean(0)
-    axes = span_build.principal_axes(centered.T @ centered, 2)
-    y = centered @ axes[0]
-    x = centered @ axes[1] if c.d >= 2 else y
+    _, proj = span_build.principal_frame(pos, 2)
+    y = proj[0]
+    x = proj[1] if c.d >= 2 else y
     order1 = span_sparse._argsort_by(y, t.group_of)
     order = order1[span_sparse._argsort_by(x[order1], t.row_key)]
-    lwpow = c.idx.lwpow(w, dtype, float(c.opts.edge_length))
-    return dict(order=order, order1=order1, positions=pos, inv_w=inv_w, lwpow=lwpow, colors=colors,
-                x=x, y=y, t=t, in_index=in_index, centered=centered)
+    vrec = c.idx.vertex_records(w, inv_w, colors, dtype, float(c.opts.edge_length))
+    return dict(order=order, order1=order1, positions=pos, vrec=vrec, x=x, y=y, t=t, in_index=in_index,
+                centered=pos - pos.mean(0))
 
 
 def _counts():
-    return (span_build.principal_axes.launches, span_build.span_records.launches,
-            span_build.span_windows.launches)
+    return (span_build.principal_frame.launches, span_build.principal_axes.launches,
+            span_build.span_records.launches, span_build.span_windows.launches)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, F64])
@@ -339,7 +338,10 @@ def test_wrappers_run_the_plain_versions_on_the_cpu(dtype, sampled):
     cov = p["centered"].T @ p["centered"]
     for k in (2, 3):
         assert torch.equal(span_build.principal_axes(cov, k), span_build.principal_axes_reference(cov, k))
-    args = (p["order"], p["positions"], p["inv_w"], p["lwpow"], p["colors"], p["x"], p["y"], p["t"], in_index)
+        for a, b in zip(span_build.principal_frame(p["positions"], k),
+                        span_build.principal_frame_reference(p["positions"], k)):
+            assert torch.equal(a, b)
+    args = (p["order"], p["positions"], p["vrec"], p["x"], p["y"], p["t"], in_index)
     got, want = span_build.span_records(*args), span_build.span_records_reference(*args)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
@@ -352,12 +354,13 @@ def test_wrappers_run_the_plain_versions_on_the_cpu(dtype, sampled):
 
 
 def test_launch_counters_are_kept_with_the_step_graphs():
-    """The build's three counters are among the counters a captured step
+    """The build's four counters are among the counters a captured step
     takes back and adds at each replay (``kernels.counters``)."""
     before = kernels.counters()
     assert len(before) == len(kernels._COUNTERS)
     wrappers = {fn for fn, _ in kernels._COUNTERS}
-    assert {span_build.principal_axes, span_build.span_records, span_build.span_windows} <= wrappers
+    assert {span_build.principal_frame, span_build.principal_axes, span_build.span_records,
+            span_build.span_windows} <= wrappers
     kernels.add_to_counters(tuple(range(1, len(before) + 1)))
     after = kernels.counters()
     assert all(a - b == i + 1 for i, (a, b) in enumerate(zip(after, before)))
@@ -374,12 +377,12 @@ def test_launch_counters_are_kept_with_the_step_graphs():
         (lambda p: span_build.principal_axes(torch.eye(3, dtype=F64).to("meta"), 2), ValueError),
         (lambda p: span_build.span_records(p["order"].to(torch.int32), *_rest(p)), TypeError),
         (lambda p: span_build.span_records(p["order"][:-1], *_rest(p)), ValueError),
-        (lambda p: span_build.span_records(p["order"], p["positions"], p["inv_w"].float(), *_rest(p)[2:]),
+        (lambda p: span_build.span_records(p["order"], p["positions"], p["vrec"].float(), *_rest(p)[2:]),
          TypeError),
-        (lambda p: span_build.span_records(p["order"], *_rest(p)[:3], p["colors"].long(), *_rest(p)[4:]),
+        (lambda p: span_build.span_records(p["order"], *_rest(p)[:2], p["x"].float(), *_rest(p)[3:]),
          TypeError),
         (lambda p: span_build.span_records(*(v.to("meta") if torch.is_tensor(v) else v
-                                             for v in (p["order"], *_rest(p)[:6])), p["t"]), ValueError),
+                                             for v in (p["order"], *_rest(p)[:4])), p["t"]), ValueError),
         (lambda p: span_build.span_windows(torch.zeros(2, 3, dtype=F64), p["y"], p["order1"], p["t"],
                                            p["blk"]), ValueError),
         (lambda p: span_build.span_windows(p["sorted"], p["y"], p["order1"], p["t"], p["blk"][:, :-1]),
@@ -404,7 +407,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(call, error):
 
 
 def _rest(p):
-    return (p["positions"], p["inv_w"], p["lwpow"], p["colors"], p["x"], p["y"], p["t"])
+    return (p["positions"], p["vrec"], p["x"], p["y"], p["t"])
 
 
 def _rest_all(p):

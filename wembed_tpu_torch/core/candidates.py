@@ -3,14 +3,16 @@
 Counterpart of four functions of ``wembed_tpu/core/candidates.py``: the
 doubling weight classes of the reference's weighted radius index
 (src/embeddingLib/src/spacialQuery/WeightedIndex.cpp:51-63) and the power
-iteration that finds the first two principal axes the windowed span
-structures project on (``kernels/span_sparse.py:build_span_structures``),
-or the first three for the cell layout
-(``kernels/span_compact.py:build_cell_structures``).  Same arithmetic in
-the input's dtype: 12 iterations from the perturbed all-ones start vector,
-then deflation and re-orthogonalisation for each further axis; the
-covariance is a torch product, the rest one launch of
-``kernels/span_build.py:principal_axes`` (its plain version on the CPU).
+iteration that finds the first two principal axes of centred rows, or the
+first three.  Same arithmetic in the input's dtype: 12 iterations from the
+perturbed all-ones start vector, then deflation and re-orthogonalisation
+for each further axis; the covariance is a torch product, the rest one
+launch of ``kernels/span_build.py:principal_axes`` (its plain version on
+the CPU).  The span builds (``kernels/span_sparse.py:
+build_span_structures``, ``kernels/span_compact.py:build_cell_structures``)
+take the axes and projections from the positions in one call of
+``kernels/span_build.py:principal_frame`` instead, whose mean and
+covariance are pairwise trees.
 """
 
 from __future__ import annotations

@@ -152,3 +152,4 @@ class PartitionerOptions:
     max_cluster_size: int = 6
     final_graph_size: int = 10
     order_type: int = 0  # 0 = ascending degree, 1 = random
+    num_hierarchies: int = 1

@@ -1,20 +1,49 @@
-// The span structures build for Hopper (sm_90a): the principal axes, the
-// records and the windows of one step, in three launches.
+// The span structures build for Hopper (sm_90a): the principal frame, the
+// records and the windows of one step.
 //
 // Not a port of a TPU kernel.  The JAX package builds the span structures
 // as plain jnp, which XLA fuses into one program
 // (wembed_tpu/kernels/span_sparse.py:917 build_span_structures, its
 // projections from wembed_tpu/core/candidates.py:409 _power_iteration and
 // :429 _principal_axes2).  The port's plain versions are in
-// kernels/span_build.py (principal_axes_reference, span_records_reference,
+// kernels/span_build.py (principal_frame_reference,
+// principal_axes_reference, span_records_reference,
 // span_windows_reference), and every operation here repeats one of their
 // torch operations, in their order and rounding: each multiply, add,
 // division and sqrt rounded alone (--fmad=false, IEEE division and sqrt),
 // so each kernel is bitwise its plain version.
 //
-// principal_axes_kernel<T, K> (K = 2, or 3 for the cell layout), ONE CTA:
-// the first K principal axes of a (d, d) covariance by power iteration,
-// 12 steps an axis from the perturbed all-ones start
+// The principal frame at d <= 8 (f32, f64), three grid-wide launches, from
+// the positions to the first K = 2 (windows) or 3 (cells) axes and the
+// projections on them:
+//   frame_mean_kernel<T, D>     each CTA sums its aligned chunk of 1,024
+//       rows as a pairwise tree (a thread's four rows, then xor shuffles
+//       1, 2, ..., 16 across the warp, then the eight warps in shared
+//       memory) and writes its partial; the last CTA to finish (a device
+//       counter it resets for the next launch or graph replay) carries on
+//       the same tree over the partials and divides by n.  Rows past n
+//       count as -0.0, the additive identity, so the tree is the plain
+//       version's over any power-of-two length;
+//   frame_axes_kernel<T, D>     the same tree over each product c_i * c_k
+//       (i <= k) of the centred rows c = p - mean, each rounded alone; the
+//       last CTA folds the partials into the covariance and runs the power
+//       iteration, deflation and re-orthogonalisation of
+//       principal_axes_reference in ONE warp's registers: lane i holds row
+//       i of the (deflated) covariance and component i of the iterate, the
+//       other components come by shuffles, and every norm and dot product
+//       is each lane's own left fold of the same shuffled values (no
+//       barrier, no shared scalar);
+//   frame_project_kernel<T, D>  a thread a row: proj[a][v] = c_v . axis_a,
+//       folded in k order.
+// Bound on an H100 by latency, not bytes: the positions are read three
+// times (~0.8 MB at girg100k d=2, from L2), the projections written once;
+// what costs is the three launches' dependency chain and the last CTA's
+// 12 power steps an axis (a few shuffles and one division each).
+//
+// principal_axes_kernel<T, K> (K = 2, or 3 for the cell layout), ONE CTA,
+// the general route's (d > 8): the first K principal axes of a (d, d)
+// covariance by power iteration, 12 steps an axis from the perturbed
+// all-ones start
 //   v[i] = 1 + i * 1e-3,  v = v / |v|,
 //   w[i] = c(i,0)*v[0] + c(i,1)*v[1] + ...   (k ascending, a left fold)
 //   |w| = sqrt(w[0]*w[0] + w[1]*w[1] + ...)  (k ascending)
@@ -25,27 +54,32 @@
 // (v3.v2) v2) and normalised where its norm is above 1e-12.  The deflated
 // matrices are never stored: each element is recomputed from cov with the
 // same operations.  A thread a row of the product; the norms and dot
-// products are one thread's k-ordered fold (d is 1 ... 16 on the port's
-// main paths; the axes and one row live in shared memory, opted in past
-// 48 KB, so d reaches ~7,000 in f64).
+// products are one thread's k-ordered fold (the axes and one row live in
+// shared memory, opted in past 48 KB, so d reaches ~7,000 in f64).
 //
-// span_records_kernel<T, D> (D = 1 ... 8, 0 for any d): one thread a slot
-// of the three layouts the sweep and the edge pass read, gathered through
-// the step's permutation `order` (sorted rank -> vertex):
+// span_records_kernel<T, D> (D = 1 ... 8, 0 for any d): a CTA a section's
+// 256 slots, the sections split by CTA (query slots, member slots, sorted
+// ranks), each slot gathered through the step's permutation `order`
+// (sorted rank -> vertex) from the position and ONE packed vertex row
+// vrec[v] = [iw, lw * lw, 1 / iw, colour bits, bm2, lw, 0, 0], made once a
+// weights tensor (kernels/span_build.py:vertex_records; 32 bytes in f32,
+// so a gather is one sector):
 //   query slot q  (NQ = NB * 256)  r = src_of_q[q]:
-//       qrec[q] = [pos[v], iw[v], lw[v] * lw[v], 1 / iw[v]], qcol[q] = col[v]
-//       with v = order[r], or the query sentinel [+1e15 ..., 1, 0, 0], -2
-//       where r = n (padding);
+//       qrec[q] = [pos[v], iw, lw * lw, 1 / iw], qcol[q] = colour, with v =
+//       order[r], or the query sentinel [+1e15 ..., 1, 0, 0], -2 where r =
+//       n (padding);
 //   member slot p (NPA)            r = src_of_pad[p]:
-//       srec[p] = [pos[v], iw[v], bm2[v], 1 / iw[v]], scol[p] = col[v]
-//       (a vertex outside a partial index: position -1e15, bm2 0), or the
-//       member sentinel [-1e15 ..., 1, 0, 0], -3;
+//       srec[p] = [pos[v], iw, bm2, 1 / iw], scol[p] = colour (a vertex
+//       outside a partial index: position -1e15, bm2 0), or the member
+//       sentinel [-1e15 ..., 1, 0, 0], -3;
 //   sorted rank j (n)              v = order[j]:
 //       the inverse maps inv[v] = [j - sorted_moff[j], (j + shift_q[j]) /
 //       256, j + shift_q[j], row_of_sorted[j]] (rank in its row, query
-//       block, query slot, row) and the sorted values x[v], y[v], lw[v]
-//       that the windows read.
-// Every output is a copy, or one 1 / x or x * x rounded alone.
+//       block, query slot, row; two 16-byte stores) and the sorted values
+//       x[v], y[v], lw[v] that the windows read.
+// A slot CTA stages its 256 rows of d + 3 values in shared memory and
+// writes them as 16-byte vectors (the general instance, d > 8, writes each
+// row itself).  The slot maps are int32.  Every output is a copy.
 //
 // span_windows_kernel<T>: one CTA a query block b.  Its extrema: minx and
 // maxx at the static ranks blk_first[b] and blk_last[b] of the sorted
@@ -61,13 +95,16 @@
 // resets for the next launch or graph replay) adds the slots: integers,
 // so the total is exact in any order.
 //
-// What bounds the build on an H100: bytes.  Read once, the positions,
-// inverse weights, radius factors, colours, lw and the permutations;
+// What bounds the records and windows on an H100: bytes.  Read once, the
+// positions, the vertex rows, the projections and the permutations;
 // written once, the records (NQ + NPA rows of d + 3 values), the colours,
 // the inverse maps (4 x 8 bytes a vertex), the sorted values and the
-// (NB, R) window tables.  The records kernel gathers a vertex's row
+// (NB, R) window tables.  The records kernel gathers a vertex's rows
 // through `order` (random rows, from L2); the windows kernel's searches
 // are ~log2(row) dependent loads a window.
+//
+// The device counters make two launches of one kernel on two streams at
+// once unsafe; the port builds on one stream.
 
 #include <cuda_runtime.h>
 
@@ -77,12 +114,31 @@
 namespace wembed_build {
 
 constexpr int kThreads = 256;  // threads of a CTA
+constexpr int kWarps = kThreads / 32;
 constexpr int kQ = 256;        // query slots a block (kernels/span_sweep.py Q)
 constexpr int kST = 256;       // members a tile (kernels/span_sweep.py ST)
-constexpr int kMaxFastDim = 8; // span_records_kernel's widest templated row
+constexpr int kMaxFastDim = 8; // the frame's and the records' widest templated row
 constexpr int kMaxAxes = 3;
+constexpr int kFrameRows = 4;                       // rows a thread of the frame's sums
+constexpr int kFrameChunk = kThreads * kFrameRows;  // rows a CTA sums (kernels/span_build.py FRAME_CHUNK)
+constexpr int kVrecWidth = 8;                       // values a vertex row (VREC_WIDTH)
+constexpr unsigned kFull = 0xffffffffu;
 constexpr double kQSentinel = 1e15;   // padded query position (kernels/span_build.py _Q_SENTINEL)
 constexpr double kSSentinel = -1e15;  // padded member position (_S_SENTINEL)
+static_assert(kWarps == 8, "warps_tree adds eight warp sums");
+
+// Mirrors kernels/span_build.py:_FrameArgs; every field is 8 bytes.
+struct FrameArgs {
+  const void* pos;  // (n, d) T
+  void* mean;       // (d,) T
+  void* part;       // (ctas, d (d + 1) / 2) T: each CTA's sums, then the whole tree's
+  void* axes;       // (k, d) T
+  void* proj;       // (k, n) T
+  int64_t n, d;
+  int64_t k;        // axes: 2 or 3
+  int64_t iters;    // power iterations an axis
+  int64_t ctas;     // ceil(n / kFrameChunk)
+};
 
 // Mirrors kernels/span_build.py:_AxesArgs; every field is 8 bytes.
 struct AxesArgs {
@@ -97,18 +153,15 @@ struct AxesArgs {
 struct RecordsArgs {
   const int64_t* order;          // (n,) sorted rank -> vertex
   const void* pos;               // (n, d) T
-  const void* inv_w;             // (n,) T
-  const void* lwpow;             // (n,) T  L * w^(1/d)
-  const int32_t* colors;         // (n,)
-  const float* class_bm2;        // (n,) radius factor of each vertex's class
+  const void* vrec;              // (n, 8) T [iw, lw * lw, 1 / iw, colour bits, bm2, lw, 0, 0], 16-byte aligned
   const uint8_t* in_index;       // (n,) bool, or null for a whole index
   const void* x;                 // (n,) T second-axis projection (d = 1: the first)
   const void* y;                 // (n,) T first-axis projection
-  const int64_t* src_of_q;       // (NQ,) query slot -> sorted rank, n = padding
-  const int64_t* src_of_pad;     // (NPA,) member slot -> sorted rank, n = padding
-  const int64_t* sorted_shift_q; // (n,) query offset less member offset of each rank's row
-  const int64_t* sorted_moff;    // (n,) member offset of each rank's row
-  const int64_t* row_of_sorted;  // (n,) row of each rank
+  const int32_t* src_of_q;       // (NQ,) query slot -> sorted rank, n = padding
+  const int32_t* src_of_pad;     // (NPA,) member slot -> sorted rank, n = padding
+  const int32_t* sorted_shift_q; // (n,) query offset less member offset of each rank's row
+  const int32_t* sorted_moff;    // (n,) member offset of each rank's row
+  const int32_t* row_of_sorted;  // (n,) row of each rank
   void* qrec;                    // (NQ, d + 3) T
   int32_t* qcol;                 // (NQ,)
   void* srec;                    // (NPA, d + 3) T
@@ -123,7 +176,7 @@ struct WindowsArgs {
   const void* sorted;      // (3, n) T  x, y and lw in sorted order
   const void* y;           // (n,) T first-axis projection, by vertex
   const int64_t* order1;   // (n,) the first sort's permutation
-  const int64_t* src_of_q; // (NB * 256,) query slot -> sorted rank, n = padding
+  const int32_t* src_of_q; // (NB * 256,) query slot -> sorted rank, n = padding
   const int64_t* blk_first;  // (NB,) first sorted rank of each block
   const int64_t* blk_last;   // (NB,) last sorted rank of each block
   const int64_t* row_lo;     // (R,) first sorted rank of each row
@@ -137,6 +190,268 @@ struct WindowsArgs {
   int64_t* overflow;         // (1,) out
   int64_t n, nb, r, max_row;
 };
+
+// ---------------------------------------------------------- principal frame
+
+// The pairwise tree across a warp, lane l's value the leaf l: xor 1 adds
+// lanes 2i and 2i + 1, xor 2 those sums in pairs, ...; IEEE addition
+// commutes, so every lane ends with the same bits.
+template <typename T>
+__device__ __forceinline__ T warp_tree(T v) {
+#pragma unroll
+  for (int m = 1; m < 32; m <<= 1) v = v + __shfl_xor_sync(kFull, v, m);
+  return v;
+}
+
+// The tree over the eight warp sums w[0], w[stride], ..., w[7 stride].
+template <typename T>
+__device__ __forceinline__ T warps_tree(const T* w, int stride) {
+  return ((w[0] + w[stride]) + (w[2 * stride] + w[3 * stride])) +
+         ((w[4 * stride] + w[5 * stride]) + (w[6 * stride] + w[7 * stride]));
+}
+
+// A thread's four leaves 4t ... 4t + 3 as their subtree.
+template <typename T>
+__device__ __forceinline__ T tree4(const T (&l)[kFrameRows]) {
+  return (l[0] + l[1]) + (l[2] + l[3]);
+}
+
+// Column k of the thread's rows first ... first + 3 of the (n, D)
+// positions; -0.0 past n.
+template <typename T, int D>
+__device__ __forceinline__ void load_column(const T* pos, int64_t first, int64_t n, int k, T (&l)[kFrameRows]) {
+#pragma unroll
+  for (int j = 0; j < kFrameRows; ++j) l[j] = first + j < n ? pos[(first + j) * D + k] : static_cast<T>(-0.0);
+}
+
+// Stores the CTA's E sums (a warp's lane 0 put each warp's into `wpart`,
+// (kWarps, E)) into its row of `part`, fenced; then whether this CTA is
+// the last of the grid to do so (`done` counts them; the last sets it back
+// to 0 once it has finished).
+template <typename T, int E>
+__device__ __forceinline__ bool store_partial(T* part, const T* wpart, unsigned int* done, bool* s_last) {
+  __syncthreads();
+  if (threadIdx.x < E) {
+    part[static_cast<int64_t>(blockIdx.x) * E + threadIdx.x] = warps_tree(wpart + threadIdx.x, E);
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) *s_last = atomicAdd(done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (*s_last) __threadfence();
+  return *s_last;
+}
+
+// The last CTA carries the tree on over the `count` rows of CTA partials
+// in part (E sums a row, rows past `count` -0.0): each round cuts them into
+// aligned chunks of kFrameChunk rows, sums each chunk as a CTA sums its
+// rows and writes chunk c's sums into row c, until one row is left (one
+// round up to 1,024 CTAs, i.e. ~1M rows).  Chunk c reads its rows before
+// its first barrier and writes row c after it, and row c < 1,024 c belongs
+// to a chunk already read, so the rounds run in place.  Reads bypass L1
+// (other CTAs wrote the rows).
+template <typename T, int E>
+__device__ __forceinline__ void finish_partials(T* part, int64_t count, T* wpart) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  while (count > 1) {
+    const int64_t chunks = (count + kFrameChunk - 1) / kFrameChunk;
+    for (int64_t c = 0; c < chunks; ++c) {
+      const int64_t first = c * kFrameChunk + threadIdx.x * kFrameRows;
+#pragma unroll 1
+      for (int e = 0; e < E; ++e) {
+        T l[kFrameRows];
+#pragma unroll
+        for (int j = 0; j < kFrameRows; ++j) {
+          l[j] = first + j < count ? __ldcg(part + (first + j) * E + e) : static_cast<T>(-0.0);
+        }
+        const T v = warp_tree(tree4(l));
+        if (lane == 0) wpart[warp * E + e] = v;
+      }
+      __syncthreads();
+      if (threadIdx.x < E) part[c * E + threadIdx.x] = warps_tree(wpart + threadIdx.x, E);
+      __syncthreads();
+    }
+    count = chunks;
+  }
+}
+
+// CTAs of frame_mean_kernel ([0]) and frame_axes_kernel ([1]) that have
+// finished this launch.
+__device__ unsigned int g_frame_ctas_done[2];
+
+// One CTA an SM is enough (kFrameChunk rows a CTA): the bounds leave
+// ptxas every register it wants, so no instantiation spills.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1) frame_mean_kernel(const FrameArgs a) {
+  __shared__ T wpart[kWarps * D];
+  __shared__ bool s_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t n = a.n;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kFrameChunk + threadIdx.x * kFrameRows;
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    T l[kFrameRows];
+    load_column<T, D>(static_cast<const T*>(a.pos), first, n, k, l);
+    const T v = warp_tree(tree4(l));
+    if (lane == 0) wpart[warp * D + k] = v;
+  }
+  T* part = static_cast<T*>(a.part);
+  if (!store_partial<T, D>(part, wpart, &g_frame_ctas_done[0], &s_last)) return;
+  finish_partials<T, D>(part, gridDim.x, wpart);
+  if (threadIdx.x < D) static_cast<T*>(a.mean)[threadIdx.x] = __ldcg(part + threadIdx.x) / static_cast<T>(n);
+  if (threadIdx.x == 0) g_frame_ctas_done[0] = 0;
+}
+
+// a[0] * b[0] + a[1] * b[1] + ... over lanes 0 .. D-1 (lane k holds a[k],
+// b[k]), folded in k order; every lane computes the same fold.
+template <typename T, int D>
+__device__ __forceinline__ T lane_dot(T a, T b) {
+  T s = __shfl_sync(kFull, a, 0) * __shfl_sync(kFull, b, 0);
+#pragma unroll
+  for (int k = 1; k < D; ++k) s = s + __shfl_sync(kFull, a, k) * __shfl_sync(kFull, b, k);
+  return s;
+}
+
+// w[0] * w[0] + w[1] * w[1] + ... over lanes 0 .. D-1, folded in k order
+// (``lane_dot(w, w)``, each value shuffled once).
+template <typename T, int D>
+__device__ __forceinline__ T lane_norm2(T w) {
+  T wk = __shfl_sync(kFull, w, 0);
+  T s = wk * wk;
+#pragma unroll
+  for (int k = 1; k < D; ++k) {
+    wk = __shfl_sync(kFull, w, k);
+    s = s + wk * wk;
+  }
+  return s;
+}
+
+// Row i of c v (lane i holds row i of c and v[i]), folded in k order.
+template <typename T, int D>
+__device__ __forceinline__ T lane_matvec(const T (&crow)[D], T v) {
+  T s = crow[0] * __shfl_sync(kFull, v, 0);
+#pragma unroll
+  for (int k = 1; k < D; ++k) s = s + crow[k] * __shfl_sync(kFull, v, k);
+  return s;
+}
+
+// The dominant eigenvector of the (deflated) covariance whose row i lane i
+// holds: principal_axes_reference's _power_iteration, component i a lane.
+template <typename T, int D>
+__device__ __forceinline__ T warp_power_iteration(const T (&crow)[D], int i, int64_t iters) {
+  T v = T(1) + static_cast<T>(i) * static_cast<T>(1e-3);
+  v = v / sqrt(lane_norm2<T, D>(v));
+  for (int64_t it = 0; it < iters; ++it) {
+    const T w = lane_matvec<T, D>(crow, v);
+    const T norm = sqrt(lane_norm2<T, D>(w));
+    v = norm > T(0) ? w / (norm > T(0) ? norm : T(1)) : v;
+  }
+  return v;
+}
+
+// The K axes from the covariance's upper triangle `upper` (row r, column
+// q >= r at r D - r (r - 1) / 2 + q - r), by ONE warp: lane i < D holds
+// row i of the covariance, deflated in place after each axis as the plain
+// version forms cov - lam * outer(v, v), and component i of each axis.
+template <typename T, int D>
+__device__ __forceinline__ void warp_axes(const T* upper, const FrameArgs& a) {
+  const int lane = threadIdx.x & 31;
+  const int i = lane < D ? lane : 0;  // lanes past d shadow row 0; no lane reads their values
+  T crow[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    const int r = i < k ? i : k, q = i < k ? k : i;
+    crow[k] = __ldcg(upper + r * D - r * (r - 1) / 2 + (q - r));
+  }
+  T ax[kMaxAxes];
+  T* axes = static_cast<T*>(a.axes);
+#pragma unroll
+  for (int level = 0; level < kMaxAxes; ++level) {
+    if (level >= a.k) break;
+    if (level > 0) {  // deflate by the axis before: lam = v . (c v), c - lam * (v_i v_k)
+      const T prev = ax[level - 1];
+      const T lam = lane_dot<T, D>(prev, lane_matvec<T, D>(crow, prev));
+#pragma unroll
+      for (int k = 0; k < D; ++k) crow[k] = crow[k] - lam * (prev * __shfl_sync(kFull, prev, k));
+    }
+    T v = warp_power_iteration<T, D>(crow, i, a.iters);
+    if (level > 0) {
+      // the dot products with the earlier axes come from the iterate before
+      // any is taken off: (v - (v.v1) v1) - (v.v2) v2
+      T dots[kMaxAxes];
+#pragma unroll
+      for (int b = 0; b < kMaxAxes; ++b) {
+        if (b < level) dots[b] = lane_dot<T, D>(v, ax[b]);
+      }
+#pragma unroll
+      for (int b = 0; b < kMaxAxes; ++b) {
+        if (b < level) v = v - dots[b] * ax[b];
+      }
+      const T norm = sqrt(lane_norm2<T, D>(v));
+      if (norm > static_cast<T>(1e-12)) v = v / (norm > T(0) ? norm : T(1));
+    }
+    ax[level] = v;
+    if (lane < D) axes[level * D + lane] = v;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1) frame_axes_kernel(const FrameArgs a) {
+  constexpr int E = D * (D + 1) / 2;  // the upper triangle, row by row
+  __shared__ T wpart[kWarps * E];
+  __shared__ bool s_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t n = a.n;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kFrameChunk + threadIdx.x * kFrameRows;
+  const T* mean = static_cast<const T*>(a.mean);
+  T c[D][kFrameRows];  // the centred rows, column by column
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    load_column<T, D>(static_cast<const T*>(a.pos), first, n, k, c[k]);
+    const T m = mean[k];
+#pragma unroll
+    for (int j = 0; j < kFrameRows; ++j) c[k][j] = c[k][j] - m;
+  }
+  int e = 0;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+#pragma unroll
+    for (int k = i; k < D; ++k, ++e) {
+      T l[kFrameRows];
+#pragma unroll
+      for (int j = 0; j < kFrameRows; ++j) l[j] = first + j < n ? c[i][j] * c[k][j] : static_cast<T>(-0.0);
+      const T v = warp_tree(tree4(l));
+      if (lane == 0) wpart[warp * E + e] = v;
+    }
+  }
+  T* part = static_cast<T*>(a.part);
+  if (!store_partial<T, E>(part, wpart, &g_frame_ctas_done[1], &s_last)) return;
+  finish_partials<T, E>(part, gridDim.x, wpart);
+  if (warp == 0) warp_axes<T, D>(part, a);
+  if (threadIdx.x == 0) g_frame_ctas_done[1] = 0;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) frame_project_kernel(const FrameArgs a) {
+  const int64_t v = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (v >= a.n) return;
+  const T* pos = static_cast<const T*>(a.pos) + v * D;
+  const T* mean = static_cast<const T*>(a.mean);
+  const T* axes = static_cast<const T*>(a.axes);
+  T c[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) c[k] = pos[k] - mean[k];
+#pragma unroll
+  for (int b = 0; b < kMaxAxes; ++b) {
+    if (b >= a.k) break;
+    const T* u = axes + b * D;
+    T s = c[0] * u[0];
+#pragma unroll
+    for (int k = 1; k < D; ++k) s = s + c[k] * u[k];
+    static_cast<T*>(a.proj)[b * a.n + v] = s;
+  }
+}
+
 
 // ----------------------------------------------------------- principal axes
 
@@ -249,6 +564,7 @@ __global__ void __launch_bounds__(1024) principal_axes_kernel(const AxesArgs a) 
   for (int64_t i = threadIdx.x; i < K * d; i += blockDim.x) out[i] = axes[i];
 }
 
+
 // ------------------------------------------------------------------ records
 
 template <int D>
@@ -271,60 +587,101 @@ __device__ __forceinline__ void write_record(T* row, const T* p, int64_t d, bool
   row[dd + 2] = fourth;
 }
 
+// Values 0 ... 3 of a vertex row, [iw, lw * lw, 1 / iw, colour bits], as
+// one 16-byte load (f32) or two (f64).
+template <typename T>
+struct VertexHead {
+  T iw, lw2, rawexp;
+  int32_t col;
+};
+
+template <typename T>
+__device__ __forceinline__ VertexHead<T> load_head(const T* row) {
+  constexpr int kVecs = 4 * sizeof(T) / 16;
+  union {
+    uint4 u[kVecs];
+    T t[4];
+    int32_t i[4 * sizeof(T) / 4];
+  } b;
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) b.u[j] = __ldg(reinterpret_cast<const uint4*>(row) + j);
+  return {b.t[0], b.t[1], b.t[2], b.i[3 * sizeof(T) / 4]};
+}
+
+// The CTA's 256 query (or member) slots from `block * 256`: each thread
+// gathers its slot's vertex and writes its colour; the rows go through the
+// shared `stage` ((256, D + 3), 16-byte aligned) and out as 16-byte
+// vectors, or, in the general instance (D = 0), each thread writes its
+// row.
+template <typename T, int D>
+__device__ __forceinline__ void record_slots(const RecordsArgs& a, bool query, int64_t block, T* stage) {
+  const int64_t n = a.n;
+  const int64_t d = dim_of<D>(a.d);
+  const int64_t slot = block * kThreads + threadIdx.x;
+  const int64_t r = query ? a.src_of_q[slot] : a.src_of_pad[slot];
+  const T* pos = static_cast<const T*>(a.pos);
+  bool use_pos = false;
+  T fill = static_cast<T>(query ? kQSentinel : kSSentinel), iw = T(1), third = T(0), fourth = T(0);
+  int32_t col = query ? -2 : -3;
+  const T* p = pos;
+  if (r != n) {
+    const int64_t v = a.order[r];
+    const T* row = static_cast<const T*>(a.vrec) + v * kVrecWidth;
+    const VertexHead<T> h = load_head(row);
+    const bool member = query || a.in_index == nullptr || a.in_index[v] != 0;
+    use_pos = member;
+    fill = static_cast<T>(kSSentinel);  // a member slot's non-member
+    iw = h.iw;
+    third = query ? h.lw2 : (member ? row[4] : T(0));
+    fourth = h.rawexp;
+    col = h.col;
+    p = pos + v * d;
+  }
+  (query ? a.qcol : a.scol)[slot] = col;
+  T* out = static_cast<T*>(query ? a.qrec : a.srec);
+  if (D == 0) {
+    write_record<T, D>(out + slot * (d + 3), p, d, use_pos, fill, iw, third, fourth);
+    return;
+  }
+  constexpr int W = D + 3;
+  write_record<T, D>(stage + threadIdx.x * W, p, d, use_pos, fill, iw, third, fourth);
+  __syncthreads();
+  // the block's rows are contiguous, 256 W sizeof(T) bytes (a multiple of
+  // 16) from a 16-byte aligned start
+  constexpr int kVecs = kThreads * W * static_cast<int>(sizeof(T)) / 16;
+  const uint4* src = reinterpret_cast<const uint4*>(stage);
+  uint4* dst = reinterpret_cast<uint4*>(out + block * kThreads * W);
+#pragma unroll
+  for (int j = threadIdx.x; j < kVecs; j += kThreads) dst[j] = src[j];
+}
+
+// CTAs [0, NQ / 256) the query slots, then NPA / 256 CTAs the member
+// slots, then the sorted ranks, 256 a CTA.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) span_records_kernel(const RecordsArgs a) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t d = dim_of<D>(a.d);
-  const int64_t width = d + 3;
+  __shared__ __align__(16) T stage[kThreads * (D > 0 ? D + 3 : 1)];
+  const int64_t query_ctas = a.nq / kQ, member_ctas = a.npa / kST;
+  const int64_t b = blockIdx.x;
+  if (b < query_ctas) {
+    record_slots<T, D>(a, true, b, stage);
+    return;
+  }
+  if (b < query_ctas + member_ctas) {
+    record_slots<T, D>(a, false, b - query_ctas, stage);
+    return;
+  }
   const int64_t n = a.n;
-  const T* pos = static_cast<const T*>(a.pos);
-  const T* iw = static_cast<const T*>(a.inv_w);
-  if (t < a.nq) {  // a query slot
-    const int64_t r = a.src_of_q[t];
-    T* row = static_cast<T*>(a.qrec) + t * width;
-    if (r == n) {
-      write_record<T, D>(row, pos, d, false, static_cast<T>(kQSentinel), T(1), T(0), T(0));
-      a.qcol[t] = -2;
-      return;
-    }
-    const int64_t v = a.order[r];
-    const T lw = static_cast<const T*>(a.lwpow)[v];
-    const T w = iw[v];
-    write_record<T, D>(row, pos + v * d, d, true, T(0), w, lw * lw, T(1) / w);
-    a.qcol[t] = a.colors[v];
-    return;
-  }
-  if (t < a.nq + a.npa) {  // a member slot
-    const int64_t p = t - a.nq;
-    const int64_t r = a.src_of_pad[p];
-    T* row = static_cast<T*>(a.srec) + p * width;
-    const T sentinel = static_cast<T>(kSSentinel);
-    if (r == n) {
-      write_record<T, D>(row, pos, d, false, sentinel, T(1), T(0), T(0));
-      a.scol[p] = -3;
-      return;
-    }
-    const int64_t v = a.order[r];
-    const bool member = a.in_index == nullptr || a.in_index[v] != 0;
-    const T w = iw[v];
-    write_record<T, D>(row, pos + v * d, d, member, sentinel, w,
-                       member ? static_cast<T>(a.class_bm2[v]) : T(0), T(1) / w);
-    a.scol[p] = a.colors[v];
-    return;
-  }
-  const int64_t j = t - a.nq - a.npa;  // a sorted rank
+  const int64_t j = (b - query_ctas - member_ctas) * kThreads + threadIdx.x;  // a sorted rank
   if (j >= n) return;
   const int64_t v = a.order[j];
   const int64_t q = j + a.sorted_shift_q[j];
-  int64_t* inv = a.inv + 4 * v;
-  inv[0] = j - a.sorted_moff[j];
-  inv[1] = q / kQ;
-  inv[2] = q;
-  inv[3] = a.row_of_sorted[j];
+  longlong2* inv = reinterpret_cast<longlong2*>(a.inv + 4 * v);
+  inv[0] = make_longlong2(j - a.sorted_moff[j], q / kQ);
+  inv[1] = make_longlong2(q, a.row_of_sorted[j]);
   T* sorted = static_cast<T*>(a.sorted);
   sorted[j] = static_cast<const T*>(a.x)[v];
   sorted[n + j] = static_cast<const T*>(a.y)[v];
-  sorted[2 * n + j] = static_cast<const T*>(a.lwpow)[v];
+  sorted[2 * n + j] = static_cast<const T*>(a.vrec)[v * kVrecWidth + 5];
 }
 
 // ------------------------------------------------------------------ windows
@@ -448,7 +805,36 @@ __global__ void __launch_bounds__(kThreads) span_windows_kernel(const WindowsArg
   }
 }
 
+
 // ---------------------------------------------------------------- launches
+
+template <typename T, int D>
+cudaError_t launch_frame_d(const FrameArgs& a, cudaStream_t s) {
+  const unsigned ctas = static_cast<unsigned>(a.ctas);
+  frame_mean_kernel<T, D><<<ctas, kThreads, 0, s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  frame_axes_kernel<T, D><<<ctas, kThreads, 0, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  frame_project_kernel<T, D><<<static_cast<unsigned>((a.n + kThreads - 1) / kThreads), kThreads, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_frame(const FrameArgs& a, cudaStream_t s) {
+  switch (a.d) {
+    case 1: return launch_frame_d<T, 1>(a, s);
+    case 2: return launch_frame_d<T, 2>(a, s);
+    case 3: return launch_frame_d<T, 3>(a, s);
+    case 4: return launch_frame_d<T, 4>(a, s);
+    case 5: return launch_frame_d<T, 5>(a, s);
+    case 6: return launch_frame_d<T, 6>(a, s);
+    case 7: return launch_frame_d<T, 7>(a, s);
+    case 8: return launch_frame_d<T, 8>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 template <typename T, int K>
 cudaError_t launch_axes_k(const AxesArgs& a, int device, cudaStream_t s) {
@@ -479,7 +865,7 @@ void launch_records_d(const RecordsArgs& a, int64_t blocks, cudaStream_t s) {
 
 template <typename T>
 cudaError_t launch_records(const RecordsArgs& a, cudaStream_t s) {
-  const int64_t blocks = (a.nq + a.npa + a.n + kThreads - 1) / kThreads;
+  const int64_t blocks = a.nq / kQ + a.npa / kST + (a.n + kThreads - 1) / kThreads;
   switch (a.d) {
     case 1: launch_records_d<T, 1>(a, blocks, s); break;
     case 2: launch_records_d<T, 2>(a, blocks, s); break;
@@ -510,13 +896,31 @@ int wembed_span_build_tile() { return wembed_build::kST; }
 
 int wembed_span_build_max_fast_dim() { return wembed_build::kMaxFastDim; }
 
+int wembed_span_build_frame_chunk() { return wembed_build::kFrameChunk; }
+
+int wembed_span_build_vrec_width() { return wembed_build::kVrecWidth; }
+
 const char* wembed_span_build_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Each entry enqueues one launch on `stream`, in f64 when `f64` is set,
-// else f32, and returns the launch error.  None allocates or synchronises;
-// every buffer comes from the caller (kernels/span_build.py).
+// Each entry enqueues its launches on `stream`, in f64 when `f64` is set,
+// else f32, and returns the first launch error.  None allocates or
+// synchronises; every buffer comes from the caller (kernels/span_build.py).
+
+int wembed_principal_frame(const wembed_build::FrameArgs* args, int f64, int device, void* stream) {
+  using namespace wembed_build;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const FrameArgs& a = *args;
+  if (a.n < 1 || a.d < 1 || a.d > kMaxFastDim || (a.k != 2 && a.k != 3) || a.iters < 0 ||
+      a.ctas != (a.n + kFrameChunk - 1) / kFrameChunk || (a.n + kThreads - 1) / kThreads > INT32_MAX ||
+      a.pos == nullptr || a.mean == nullptr || a.part == nullptr || a.axes == nullptr || a.proj == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(f64 ? launch_frame<double>(a, s) : launch_frame<float>(a, s));
+}
 
 int wembed_principal_axes(const wembed_build::AxesArgs* args, int f64, int device, void* stream) {
   using namespace wembed_build;
@@ -535,8 +939,10 @@ int wembed_span_records(const wembed_build::RecordsArgs* args, int f64, int devi
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const RecordsArgs& a = *args;
-  if (a.n < 1 || a.d < 1 || a.nq < 0 || a.npa < 0 ||
-      (a.nq + a.npa + a.n + kThreads - 1) / kThreads > INT32_MAX) {
+  if (a.n < 1 || a.d < 1 || a.nq < 0 || a.npa < 0 || a.nq % kQ != 0 || a.npa % kST != 0 ||
+      (reinterpret_cast<uintptr_t>(a.vrec) & 15) != 0 || (reinterpret_cast<uintptr_t>(a.inv) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(a.qrec) & 15) != 0 || (reinterpret_cast<uintptr_t>(a.srec) & 15) != 0 ||
+      a.nq / kQ + a.npa / kST + (a.n + kThreads - 1) / kThreads > INT32_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -3,8 +3,8 @@ plain PyTorch version beside it.  Sources live in ``csrc/`` and build at
 first use (``_build.py``).  The span sweep lives in ``span_sweep``, the
 span path around it in ``span_sparse`` (the windowed layout) and
 ``span_compact`` (the cell layout), its edge pass in ``edge_pass``, and the
-structures build's kernels (principal axes, records, windows) in
-``span_build``."""
+structures build's kernels (principal frame, principal axes, records,
+windows) in ``span_build``."""
 
 from .fused_dense import fused_dense_forces, fused_dense_forces_reference
 from . import edge_pass as _edge_pass
@@ -33,6 +33,7 @@ _COUNTERS = (
     (_span_sweep.span_sweep, "launches_general"),
     (_edge_pass.edge_pass, "launches"),
     (_edge_pass.edge_pass, "launches_general"),
+    (_span_build.principal_frame, "launches"),
     (_span_build.principal_axes, "launches"),
     (_span_build.span_records, "launches"),
     (_span_build.span_windows, "launches"),

@@ -1,4 +1,4 @@
-"""The span structures build's three hand kernels: the principal axes, the
+"""The span structures build's hand kernels: the principal frame, the
 records and the windows of one step.
 
 Not a port of a TPU kernel.  The JAX package builds the span structures as
@@ -10,15 +10,24 @@ those torch lines are the plain versions here, and each kernel of
 ``csrc/span_build.cu`` repeats its plain version's operations in their
 order, so it is bitwise its plain version.
 
-  principal_axes   the first K = 2 (windows) or 3 (cells) principal axes of
-                   a (d, d) covariance: power iteration, deflation,
-                   re-orthogonalisation, in one single-CTA launch
-                   (``principal_axes_kernel<T, K>``); the plain version
-                   folds every product and norm in ascending k, one
-                   multiply and one add a term
+  principal_frame  positions in, the first K = 2 (windows) or 3 (cells)
+                   principal axes and the K projections out: at d <= 8
+                   three grid-wide launches (``frame_mean_kernel<T, D>``,
+                   ``frame_axes_kernel<T, D>``, ``frame_project_kernel<T,
+                   D>``), the mean and the covariance summed as pairwise
+                   trees; at d > 8 torch's mean, covariance and
+                   projections around ``principal_axes``
+  principal_axes   the first K principal axes of a (d, d) covariance:
+                   power iteration, deflation, re-orthogonalisation, in one
+                   single-CTA launch (``principal_axes_kernel<T, K>``); the
+                   plain version folds every product and norm in ascending
+                   k, one multiply and one add a term
   span_records     the query and member records and colours the sweep
                    reads, the four inverse maps and the sorted projections,
-                   one thread a slot (``span_records_kernel<T, D>``)
+                   a CTA a section's 256 slots, each gathering one packed
+                   vertex row (``vertex_records``) and writing its rows
+                   through shared memory as 16-byte stores
+                   (``span_records_kernel<T, D>``)
   span_windows     each (query block, row) window's start tile and need,
                    and the overflow, one CTA a query block
                    (``span_windows_kernel<T>``)
@@ -26,7 +35,7 @@ order, so it is bitwise its plain version.
 Each wrapper launches its kernel for CUDA tensors, on the current stream
 without synchronising (a failed build or launch raises), and runs its plain
 version (``*_reference``) for CPU tensors.  ``<wrapper>.launches`` counts
-the kernel's launches; the plain versions are not counted.
+the calls that launched its kernels; the plain versions are not counted.
 """
 
 from __future__ import annotations
@@ -40,7 +49,9 @@ from . import _build
 from .span_sweep import Q as _Q, ST as _ST
 
 ITERS = 12  # power iterations an axis (the JAX package's)
-MAX_FAST_DIM = 8  # span_records_kernel's widest templated row; wider rows take its general instance
+MAX_FAST_DIM = 8  # the widest templated row of the frame and records kernels; wider rows take the general route
+FRAME_CHUNK = 1024  # rows a CTA of frame_mean_kernel and frame_axes_kernel sums (a power of two)
+VREC_WIDTH = 8  # values a vertex record: [iw, lw * lw, 1 / iw, colour bits, bm2, lw, 0, 0]
 _Q_SENTINEL = 1e15  # padded query position (far positive)
 _S_SENTINEL = -1e15  # padded member position (far negative; never coincides
 # with a query sentinel, so sentinel x padding pairs keep dist2 > 0)
@@ -183,6 +194,109 @@ def principal_axes(cov: torch.Tensor, k: int, iters: int = ITERS) -> torch.Tenso
 principal_axes.launches = 0
 
 
+# ----------------------------------------------------------- principal frame
+
+
+def _tree_sum(a: torch.Tensor) -> torch.Tensor:
+    """The sum over dim 0 as a pairwise tree: the rows padded with -0.0 to
+    a power of two, then ``a[0::2] + a[1::2]`` until one row is left.  -0.0
+    is the additive identity (x + -0.0 is x for every x, +0.0 and -0.0
+    included), so the tree is the same at every power-of-two length >= n:
+    the kernels cut it into aligned chunks of FRAME_CHUNK rows a CTA and
+    finish it over the CTAs' partials."""
+    n = a.shape[0]
+    p = 1 << max(n - 1, 0).bit_length()
+    if p > n:
+        a = torch.cat([a, torch.full((p - n, *a.shape[1:]), -0.0, dtype=a.dtype, device=a.device)])
+    while a.shape[0] > 1:
+        a = a[0::2] + a[1::2]
+    return a[0]
+
+
+def _upper(d: int) -> tuple[list[int], list[int]]:
+    """Rows and columns of the (d, d) upper triangle, row by row."""
+    pairs = [(i, k) for i in range(d) for k in range(i, d)]
+    return [i for i, _ in pairs], [k for _, k in pairs]
+
+
+def _general_frame(positions: torch.Tensor, k: int, iters: int, axes_fn):
+    """The route at d > MAX_FAST_DIM: torch's mean, centring, covariance
+    product and projections around ``axes_fn`` (``principal_axes`` or its
+    plain version)."""
+    centered = positions - torch.mean(positions, dim=0)
+    axes = axes_fn(centered.T @ centered, k, iters)
+    return axes, torch.stack([centered @ axes[a] for a in range(k)])
+
+
+def principal_frame_reference(positions: torch.Tensor, k: int, iters: int = ITERS):
+    """Plain version of ``principal_frame``, at d <= MAX_FAST_DIM the spec
+    its kernels repeat: the mean a ``_tree_sum`` of the rows divided by n
+    (an elementwise division); the centred rows ``p - mean``; the
+    covariance's upper triangle a ``_tree_sum`` of the products ``c_i *
+    c_k``, mirrored; ``principal_axes_reference``; and each projection
+    ``c . axis`` folded in ascending k (``_matvec``).  At d > MAX_FAST_DIM
+    the general route (``_general_frame``)."""
+    n, d = positions.shape
+    if d > MAX_FAST_DIM:
+        return _general_frame(positions, k, iters, principal_axes_reference)
+    total = _tree_sum(positions)
+    c = positions - total / torch.full_like(total, n)
+    rows, cols = _upper(d)
+    upper = _tree_sum(c[:, rows] * c[:, cols])
+    cov = torch.empty((d, d), dtype=positions.dtype, device=positions.device)
+    cov[rows, cols] = upper
+    cov[cols, rows] = upper
+    axes = principal_axes_reference(cov, k, iters)
+    return axes, torch.stack([_matvec(c, axes[a]) for a in range(k)])
+
+
+class _FrameArgs(ctypes.Structure):
+    """``struct FrameArgs`` of csrc/span_build.cu, field for field."""
+
+    _fields_ = [
+        *((name, ctypes.c_void_p) for name in ("pos", "mean", "part", "axes", "proj")),
+        *((name, ctypes.c_int64) for name in ("n", "d", "k", "iters", "ctas")),
+    ]
+
+
+def principal_frame(positions: torch.Tensor, k: int, iters: int = ITERS):
+    """(axes (k, d), proj (k, n)) of the (n, d) ``positions`` (f32 or f64):
+    the first ``k`` (2 or 3) principal axes of the centred rows and the
+    centred rows' projection on each.  On a CUDA tensor at d <=
+    MAX_FAST_DIM three launches (the mean; the covariance and, in the last
+    CTA, the axes in one warp's registers; the projections), bitwise
+    ``principal_frame_reference``; at a larger d the general route through
+    ``principal_axes``; on a CPU tensor the plain version."""
+    if k not in (2, 3):
+        raise ValueError(f"principal_frame takes k = 2 or 3, got {k}")
+    if positions.dtype not in _FLOATS:
+        raise TypeError(f"principal_frame takes float32 or float64, got {positions.dtype}")
+    if positions.dim() != 2 or positions.shape[0] < 1 or positions.shape[1] < 1:
+        raise ValueError(f"principal_frame takes (n, d) positions, got {tuple(positions.shape)}")
+    if positions.device.type == "cpu":
+        return principal_frame_reference(positions, k, iters)
+    if positions.device.type != "cuda":
+        raise ValueError(f"no principal_frame kernel for device {positions.device}")
+    n, d = positions.shape
+    if d > MAX_FAST_DIM:
+        return _general_frame(positions, k, iters, principal_axes)
+    dtype, device = positions.dtype, positions.device
+    positions = positions.contiguous()
+    ctas = -(-n // FRAME_CHUNK)
+    mean = torch.empty((d,), dtype=dtype, device=device)
+    part = torch.empty((ctas, d * (d + 1) // 2), dtype=dtype, device=device)
+    axes = torch.empty((k, d), dtype=dtype, device=device)
+    proj = torch.empty((k, n), dtype=dtype, device=device)
+    args = _FrameArgs(pos=_ptr(positions), mean=_ptr(mean), part=_ptr(part), axes=_ptr(axes), proj=_ptr(proj),
+                      n=n, d=d, k=k, iters=iters, ctas=ctas)
+    _launch(_library().wembed_principal_frame, args, dtype == torch.float64, device, "principal_frame")
+    principal_frame.launches += 1
+    return axes, proj
+
+
+principal_frame.launches = 0
+
+
 # ------------------------------------------------------------------ records
 
 
@@ -197,38 +311,62 @@ class SpanRecords(NamedTuple):
     sorted: torch.Tensor  # (3, n) x, y and lw = L * w^(1/d) in sorted order
 
 
-def span_records_reference(order, positions, inv_w, lwpow, colors, x, y, t, in_index=None) -> SpanRecords:
+def _colour_column(vrec: torch.Tensor) -> int:
+    """The int32 column of ``vrec.view(torch.int32)`` that holds the colour
+    bits (the low word of value 3: little-endian)."""
+    return 3 * (vrec.element_size() // 4)
+
+
+def vertex_records(inv_w: torch.Tensor, lwpow: torch.Tensor, colors: torch.Tensor,
+                   class_bm2: torch.Tensor) -> torch.Tensor:
+    """The static vertex record ``span_records`` gathers, (n, VREC_WIDTH)
+    in ``lwpow``'s dtype: [iw, lw * lw, 1 / iw, colour bits, bm2, lw, 0,
+    0], each value the operation the records took every step before,
+    rounded alone (``1.0 / iw`` is torch's reciprocal), the colour an
+    int32 in the low word of its value.  One aligned row of 32 bytes (f32)
+    or 64 (f64) a vertex; made once a weights tensor
+    (``span_sparse.SpanIndex.vertex_records``)."""
+    dtype = lwpow.dtype
+    iw = inv_w.to(dtype)
+    rec = torch.zeros((lwpow.shape[0], VREC_WIDTH), dtype=dtype, device=lwpow.device)
+    rec[:, 0] = iw
+    rec[:, 1] = lwpow * lwpow
+    rec[:, 2] = 1.0 / iw
+    rec[:, 4] = class_bm2.to(dtype)
+    rec[:, 5] = lwpow
+    rec.view(torch.int32)[:, _colour_column(rec)] = colors.to(torch.int32)
+    return rec
+
+
+def span_records_reference(order, positions, vrec, x, y, t, in_index=None) -> SpanRecords:
     """Plain version of ``span_records``: the records gathered through the
     static slot maps of ``t`` (``span_sparse.SpanTensors``), sentinels at
     padding slots, a vertex outside ``in_index`` (a partial index's
     members) given the member sentinel position and a zero radius factor;
     the inverse maps written through ``order``."""
     n = positions.shape[0]
-    dtype, device = positions.dtype, positions.device
+    device = positions.device
     pos_s = positions[order]
-    invw_s = inv_w.to(dtype)[order]
-    lwpow_s = lwpow[order]
-    col_s = colors[order]
-    rawexp_s = 1.0 / invw_s
-    mpos_s, bm2_s = pos_s, t.class_bm2.to(dtype)[order]
+    rec_s = vrec[order]
+    invw_s, lw2_s, rawexp_s, bm2_s, lwpow_s = (rec_s[:, c] for c in (0, 1, 2, 4, 5))
+    col_s = vrec.view(torch.int32)[:, _colour_column(vrec)][order]
+    mpos_s = pos_s
     if in_index is not None:
         member = in_index[order]
         mpos_s = torch.where(member[:, None], pos_s, _S_SENTINEL)
         bm2_s = torch.where(member, bm2_s, 0.0)
     svals = torch.cat([mpos_s, invw_s[:, None], bm2_s[:, None], rawexp_s[:, None]], dim=1)
     srec = _with_record_sentinel(svals, _S_SENTINEL)[t.src_of_pad]
-    qvals = torch.cat(
-        [pos_s, invw_s[:, None], (lwpow_s * lwpow_s)[:, None], rawexp_s[:, None]], dim=1
-    )
+    qvals = torch.cat([pos_s, invw_s[:, None], lw2_s[:, None], rawexp_s[:, None]], dim=1)
     qrec = _with_record_sentinel(qvals, _Q_SENTINEL)[t.src_of_q]
-    scol = _with_sentinel(col_s, -3)[t.src_of_pad].to(torch.int32)
-    qcol = _with_sentinel(col_s, -2)[t.src_of_q].to(torch.int32)
+    scol = _with_sentinel(col_s, -3)[t.src_of_pad]
+    qcol = _with_sentinel(col_s, -2)[t.src_of_q]
     # inverse maps: row-local rank, query block, query slot and row of each
     # vertex, one index write through the permutation ``order``
     j = torch.arange(n, device=device)
     q_idx = j + t.sorted_shift_q
     inv = torch.empty((n, 4), dtype=torch.int64, device=device)
-    inv[order] = torch.stack([j - t.sorted_moff, q_idx // _Q, q_idx, t.row_of_sorted], dim=1)
+    inv[order] = torch.stack([j - t.sorted_moff, q_idx // _Q, q_idx, t.row_key.to(torch.int64)], dim=1)
     return SpanRecords(qrec.contiguous(), qcol, srec.contiguous(), scol, inv,
                        torch.stack([x[order], y[order], lwpow_s]))
 
@@ -238,41 +376,42 @@ class _RecordsArgs(ctypes.Structure):
 
     _fields_ = [
         *((name, ctypes.c_void_p) for name in (
-            "order", "pos", "inv_w", "lwpow", "colors", "class_bm2", "in_index", "x", "y", "src_of_q",
-            "src_of_pad", "sorted_shift_q", "sorted_moff", "row_of_sorted", "qrec", "qcol", "srec",
-            "scol", "inv", "sorted",
+            "order", "pos", "vrec", "in_index", "x", "y", "src_of_q", "src_of_pad", "sorted_shift_q",
+            "sorted_moff", "row_of_sorted", "qrec", "qcol", "srec", "scol", "inv", "sorted",
         )),
         *((name, ctypes.c_int64) for name in ("n", "d", "nq", "npa")),
     ]
 
 
-def span_records(order, positions, inv_w, lwpow, colors, x, y, t, in_index=None) -> SpanRecords:
+def span_records(order, positions, vrec, x, y, t, in_index=None) -> SpanRecords:
     """The step's records through the permutation ``order`` ((n,) i64,
-    sorted rank -> vertex): ``positions`` (n, d) f32 or f64, ``inv_w``,
-    ``lwpow`` (L * w^(1/d)) and the projections ``x`` (second axis; at d
-    = 1 the first) and ``y`` (first axis), all (n,) in the positions'
-    dtype, ``colors`` (n,) i32, the index's static tables ``t``
-    (``span_sparse.SpanTensors``) and ``in_index`` ((n,) bool) under a
-    partial index.  One launch of ``span_records_kernel`` on CUDA tensors,
-    ``span_records_reference`` on CPU tensors."""
+    sorted rank -> vertex): ``positions`` (n, d) f32 or f64, the static
+    vertex record ``vrec`` ((n, VREC_WIDTH), ``vertex_records``) and the
+    projections ``x`` (second axis; at d = 1 the first) and ``y`` (first
+    axis), all in the positions' dtype, the index's static tables ``t``
+    (``span_sparse.SpanTensors``: the int32 slot maps) and ``in_index``
+    ((n,) bool) under a partial index.  One launch of
+    ``span_records_kernel`` on CUDA tensors, ``span_records_reference`` on
+    CPU tensors."""
     n, d = positions.shape
     dtype, device = positions.dtype, positions.device
     if dtype not in _FLOATS:
         raise TypeError(f"span_records takes positions as float32 or float64, got {dtype}")
     nq, npa = t.src_of_q.shape[0], t.src_of_pad.shape[0]
     for item in (
-        ("order", order, torch.int64, (n,)), ("inv_w", inv_w, dtype, (n,)), ("lwpow", lwpow, dtype, (n,)),
-        ("colors", colors, torch.int32, (n,)), ("x", x, dtype, (n,)), ("y", y, dtype, (n,)),
-        ("class_bm2", t.class_bm2, torch.float32, (n,)), ("src_of_q", t.src_of_q, torch.int64, (nq,)),
-        ("src_of_pad", t.src_of_pad, torch.int64, (npa,)),
-        ("sorted_shift_q", t.sorted_shift_q, torch.int64, (n,)),
-        ("sorted_moff", t.sorted_moff, torch.int64, (n,)),
-        ("row_of_sorted", t.row_of_sorted, torch.int64, (n,)),
+        ("order", order, torch.int64, (n,)), ("vrec", vrec, dtype, (n, VREC_WIDTH)),
+        ("x", x, dtype, (n,)), ("y", y, dtype, (n,)), ("src_of_q", t.src_of_q, torch.int32, (nq,)),
+        ("src_of_pad", t.src_of_pad, torch.int32, (npa,)),
+        ("sorted_shift_q", t.sorted_shift_q, torch.int32, (n,)),
+        ("sorted_moff", t.sorted_moff, torch.int32, (n,)),
+        ("row_key", t.row_key, torch.int32, (n,)),
         *((("in_index", in_index, torch.bool, (n,)),) if in_index is not None else ()),
     ):
         _expect(*item, device)
+    if nq % _Q or npa % _ST:
+        raise ValueError(f"span_records takes whole query blocks and tiles, got {nq} and {npa} slots")
     if device.type == "cpu":
-        return span_records_reference(order, positions, inv_w, lwpow, colors, x, y, t, in_index)
+        return span_records_reference(order, positions, vrec, x, y, t, in_index)
     if device.type != "cuda":
         raise ValueError(f"no span_records kernel for device {device}")
     out = SpanRecords(
@@ -283,9 +422,9 @@ def span_records(order, positions, inv_w, lwpow, colors, x, y, t, in_index=None)
         inv=torch.empty((n, 4), dtype=torch.int64, device=device),
         sorted=torch.empty((3, n), dtype=dtype, device=device),
     )
-    inputs = dict(order=order, pos=positions, inv_w=inv_w, lwpow=lwpow, colors=colors, class_bm2=t.class_bm2,
-                  in_index=in_index, x=x, y=y, src_of_q=t.src_of_q, src_of_pad=t.src_of_pad,
-                  sorted_shift_q=t.sorted_shift_q, sorted_moff=t.sorted_moff, row_of_sorted=t.row_of_sorted)
+    inputs = dict(order=order, pos=positions, vrec=vrec, in_index=in_index, x=x, y=y, src_of_q=t.src_of_q,
+                  src_of_pad=t.src_of_pad, sorted_shift_q=t.sorted_shift_q, sorted_moff=t.sorted_moff,
+                  row_of_sorted=t.row_key)
     keep = {name: None if v is None else v.contiguous() for name, v in inputs.items()}
     args = _RecordsArgs(**{name: _ptr(v) for name, v in keep.items()},
                         **{name: _ptr(v) for name, v in out._asdict().items()}, n=n, d=d, nq=nq, npa=npa)
@@ -377,7 +516,7 @@ def span_windows(sorted_xyl, y, order1, t, blk_t):
     nb, rr = t.blk_first.shape[0], t.row_lo.shape[0]
     for item in (
         ("sorted_xyl", sorted_xyl, dtype, (3, n)), ("order1", order1, torch.int64, (n,)),
-        ("src_of_q", t.src_of_q, torch.int64, (nb * _Q,)), ("blk_first", t.blk_first, torch.int64, (nb,)),
+        ("src_of_q", t.src_of_q, torch.int32, (nb * _Q,)), ("blk_first", t.blk_first, torch.int64, (nb,)),
         ("blk_last", t.blk_last, torch.int64, (nb,)), ("row_lo", t.row_lo, torch.int64, (rr,)),
         ("row_hi", t.row_hi, torch.int64, (rr,)), ("row_tiles", t.row_tiles, torch.int64, (rr,)),
         ("bmax_row", t.bmax_row, torch.float32, (rr,)),
@@ -416,6 +555,8 @@ _CONSTANTS = {
     "wembed_span_build_query_block": _Q,
     "wembed_span_build_tile": _ST,
     "wembed_span_build_max_fast_dim": MAX_FAST_DIM,
+    "wembed_span_build_frame_chunk": FRAME_CHUNK,
+    "wembed_span_build_vrec_width": VREC_WIDTH,
 }
 
 
@@ -428,8 +569,8 @@ def _configure(lib: ctypes.CDLL) -> None:
             raise RuntimeError(f"csrc/span_build.cu and the package disagree on {name}: {fn()} != {want}")
     lib.wembed_span_build_error_string.argtypes = [ctypes.c_int]
     lib.wembed_span_build_error_string.restype = ctypes.c_char_p
-    for name, struct in (("wembed_principal_axes", _AxesArgs), ("wembed_span_records", _RecordsArgs),
-                         ("wembed_span_windows", _WindowsArgs)):
+    for name, struct in (("wembed_principal_frame", _FrameArgs), ("wembed_principal_axes", _AxesArgs),
+                         ("wembed_span_records", _RecordsArgs), ("wembed_span_windows", _WindowsArgs)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(struct), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int

@@ -16,7 +16,8 @@ the reference's terms an output-sensitive filter, src/SNN/src/snn.cpp:
      and shrink size it from measured needs with the JAX package's
      arithmetic.
   2. ``build_cell_structures`` (torch, every step): project on the first
-     three principal axes, three stable sorts ((group, y), (row, x),
+     three principal axes (``span_build.principal_frame``, three CUDA
+     kernels on the card), three stable sorts ((group, y), (row, x),
      (cell, z)), and per (query block, cell) a window: none for a cell
      whose row or cell extent lies beyond the block's reach on the first
      or second axis, else a searchsorted on the cell's third-axis values.
@@ -55,9 +56,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.candidates import _principal_axes3
 from ..core.edge_schedule import EdgeSchedules
-from . import span_sparse
+from . import span_build, span_sparse
 from .span_build import _Q_SENTINEL, _S_SENTINEL, _with_record_sentinel, _with_sentinel
 from .span_sparse import _argsort_by, _cdiv
 from .span_sweep import Q as _Q, ST as _ST, work_items
@@ -416,11 +416,8 @@ def build_cell_structures(
     if blk_t is None:
         blk_t = idx.blk_t_tensor(device)
 
-    centered = positions - torch.mean(positions, dim=0)
-    v1, v2, v3 = _principal_axes3(centered)
-    y = centered @ v1  # rows
-    x = centered @ v2  # cells
-    z = centered @ v3  # within a cell
+    _, proj = span_build.principal_frame(positions, 3)
+    y, x, z = proj  # rows, cells, within a cell
 
     # stable sorts, so ties go by index as in the JAX package's lexsorts:
     # (group, y) ranks give rows, (row, x) ranks cells, then (cell, z)

@@ -15,10 +15,10 @@ projected-sort index, snn.cpp:97-160):
      principal axes, sort by (group, first axis) then (row, second axis),
      lay out the member and query records, place each window by a binary
      search on the second axis, and report the per-window need and the
-     overflow (in-radius members beyond the windows).  The axes, the
-     records and the windows are three CUDA kernels
-     (``kernels/span_build.py``, ``csrc/span_build.cu``); the mean, the
-     covariance, the projections and the sorts are torch.
+     overflow (in-radius members beyond the windows).  The principal
+     frame (mean, covariance, axes and projections), the records and the
+     windows are CUDA kernels (``kernels/span_build.py``,
+     ``csrc/span_build.cu``); the sorts are torch.
   3. ``kernels/span_sweep.py``: the sweep of every window (the CUDA kernel),
      in work items of at most ``WORK_ITEM_TILES`` tiles that the index cuts
      from its windows (``SpanIndex.work_items``).
@@ -67,7 +67,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.candidates import _principal_axes2, doubling_weight_buckets
+from ..core.candidates import doubling_weight_buckets
 from ..core.edge_schedule import EdgeSchedules
 from ..core.forces import edge_share, normal_rows
 from . import edge_pass as edges
@@ -145,12 +145,12 @@ class SpanTensors(NamedTuple):
 
     group_of: torch.Tensor  # (n,) i32, the first sort's key (32 bits: half the radix passes of 64)
     class_bm2: torch.Tensor  # (n,) f32
-    row_of_sorted: torch.Tensor  # (n,) i64
-    row_key: torch.Tensor  # (n,) i32 row_of_sorted, the second sort's key
-    sorted_moff: torch.Tensor  # (n,) i64
-    sorted_shift_q: torch.Tensor  # (n,) i64
-    src_of_pad: torch.Tensor  # (NPA,) i64, n = sentinel
-    src_of_q: torch.Tensor  # (NQ,) i64, n = sentinel
+    row_key: torch.Tensor  # (n,) i32 row of each sorted rank, the second sort's key
+    # int32 slot maps, read by the records (and src_of_q by the windows)
+    sorted_moff: torch.Tensor  # (n,) i32
+    sorted_shift_q: torch.Tensor  # (n,) i32
+    src_of_pad: torch.Tensor  # (NPA,) i32, n = sentinel
+    src_of_q: torch.Tensor  # (NQ,) i32, n = sentinel
     row_grid: torch.Tensor  # (R, max row size) i64 sorted rank, n = past the row
     blk_first: torch.Tensor  # (NB,) i64
     blk_last: torch.Tensor  # (NB,) i64
@@ -263,12 +263,11 @@ class SpanIndex:
             cached = SpanTensors(
                 group_of=i32(self.group_of),
                 class_bm2=f32(self.class_bm2),
-                row_of_sorted=i64(self.row_of_sorted),
                 row_key=i32(self.row_of_sorted),
-                sorted_moff=i64(self.sorted_moff),
-                sorted_shift_q=i64(self.sorted_shift_q),
-                src_of_pad=i64(self.src_of_pad),
-                src_of_q=i64(self.src_of_q),
+                sorted_moff=i32(self.sorted_moff),
+                sorted_shift_q=i32(self.sorted_shift_q),
+                src_of_pad=i32(self.src_of_pad),
+                src_of_q=i32(self.src_of_q),
                 row_grid=i64(row_grid),
                 blk_first=i64(self.blk_first),
                 blk_last=i64(self.blk_last),
@@ -298,6 +297,22 @@ class SpanIndex:
         if hit is None or hit[0] is not weights or hit[1] != (weights._version, dtype, edge_length):
             lw = edge_length * torch.pow(weights.to(dtype), 1.0 / self.d)
             hit = (weights, (weights._version, dtype, edge_length), lw)
+            self._tensors[key] = hit
+        return hit[2]
+
+    def vertex_records(self, weights: torch.Tensor, inv_w: torch.Tensor, colors: torch.Tensor,
+                       dtype: torch.dtype, edge_length: float) -> torch.Tensor:
+        """(n, 8) ``span_build.vertex_records`` in ``dtype``, made once for
+        these weights, inverse weights and colours (by identity and
+        in-place version) and kept beside ``lwpow``."""
+        lw = self.lwpow(weights, dtype, edge_length)
+        key = ("vertex_records", str(weights.device))
+        sources = (lw, inv_w, colors)
+        stamp = tuple(t._version for t in sources)
+        hit = self._tensors.get(key)
+        if hit is None or any(a is not b for a, b in zip(hit[0], sources)) or hit[1] != stamp:
+            rec = span_build.vertex_records(inv_w, lw, colors, self.tensors(weights.device).class_bm2)
+            hit = (sources, stamp, rec)
             self._tensors[key] = hit
         return hit[2]
 
@@ -620,10 +635,9 @@ def build_span_structures(
         blk_t = idx.blk_t_tensor(device)
     blk_t = blk_t.to(torch.int32).contiguous()
 
-    centered = positions - torch.mean(positions, dim=0)
-    v1, v2 = _principal_axes2(centered)
-    y = centered @ v1  # binning axis
-    x = (centered @ v2) if d >= 2 else y  # d == 1: search the projection itself
+    _, proj = span_build.principal_frame(positions, 2)
+    y = proj[0]  # binning axis
+    x = proj[1] if d >= 2 else y  # d == 1: search the projection itself
 
     # sort 1: (group, y) gives each vertex's first-axis rank, hence its row;
     # sort 2: (row, x), composed so no inverse is needed
@@ -631,7 +645,8 @@ def build_span_structures(
     order = order1[_argsort_by(x[order1], t.row_key)]
 
     lwpow = idx.lwpow(weights, dtype, float(opts.edge_length))
-    rec = span_build.span_records(order, positions, inv_w.to(dtype), lwpow, colors, x, y, t, in_index)
+    vrec = idx.vertex_records(weights, inv_w, colors, dtype, float(opts.edge_length))
+    rec = span_build.span_records(order, positions, vrec, x, y, t, in_index)
     start_tile, need, overflow = span_build.span_windows(rec.sorted, y, order1, t, blk_t)
     return SpanStructures(
         qrec=rec.qrec,
