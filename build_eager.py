@@ -21,9 +21,21 @@ profiled step:
   ``events``: their count a build.
 
 When ``event_ms`` follows ``host_ms`` and ``device_ms`` is far below both,
-the phase measures the host.  Prints the card's name and power limit, each
-metric as a median with quartiles, and last one JSON object.  Exits
-non-zero without a CUDA card.  Imports nothing of JAX.
+the phase measures the host.
+
+``--compare-build``: then ``chip_smoke.py``'s timed ``compare_build`` at
+the same positions (the build's kernels against their plain versions,
+bitwise, and each wrapper's ms a call from CUDA graph replays beside its
+bound), whose timings go into the last line as ``build_kernels``; each
+kernel's device ms a build from a trace of replays of the whole build
+(``build_kernel_ms``); and the sweep's reduce kernel's work items and
+bound at the same windows (``sweep_reduce``).  It is the ``chip_smoke.py`` beside this script that
+runs, so the script copied into another tree's checkout times that
+tree's kernels with that tree's comparison.
+
+Prints the card's name and power limit, each metric as a median with
+quartiles, and last one JSON object.  Exits non-zero without a CUDA card.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -91,6 +103,46 @@ def trace_builds(build, builds: int) -> dict[str, float]:
     return dict(device_ms=sum(device) / builds, events=len(device) / builds)
 
 
+def compare_build(name: str, emb) -> dict:
+    """``chip_smoke.compare_build`` (timed) at a flat span embedder's
+    positions: {"build_kernels": each wrapper's ms a call, plain ms, bound
+    and share, and the device times its timing holds; "build_ms": the
+    whole build replayed; "build_kernel_ms": each kernel's device ms a
+    build, from a trace of replays of the whole build as the step makes
+    it, the same measure in any tree}."""
+    import chip_smoke
+
+    impl = emb.impl
+    st = impl.state
+    row = chip_smoke.compare_build(f"{name}_converged", chip_smoke.build_case(
+        st.positions, impl._inv_w, impl._weights, impl._dg.colors, impl._index, impl.opts), timed=True)
+    fields = ("ms", "plain_ms", "bound_ms", "share", "kernel_ms", "settled_kernel_ms")
+    kernels = {k: {m: v[m] for m in fields if m in v}
+               for k, v in row["timing"].items() if k in chip_smoke.BUILD_KERNELS}
+
+    def build():
+        return impl._index.structures(st.positions, impl._inv_w, impl._weights, impl._dg.colors, impl.opts,
+                                      impl._blk_t, None)
+
+    return dict(build_kernels=kernels, build_ms=row["build_ms"], build_kernel_ms=chip_smoke.replay_kernel_ms(build, 200),
+                sweep_reduce=reduce_bound(emb))
+
+
+def reduce_bound(emb) -> dict:
+    """The sweep's ``span_reduce_kernel`` at the embedder's windows: its
+    work items, and its least time by bytes, the (items, d + 3, 256) f32
+    scratch read once and the (NQ, d + 3) outputs written once, over the
+    card's memory rate."""
+    import chip_smoke
+    from wembed_tpu_torch.kernels import span_sweep
+
+    impl = emb.impl
+    d = impl.state.positions.shape[1]
+    items = len(span_sweep.work_items(impl._blk_t.cpu().numpy()))
+    nbytes = items * (d + 3) * 256 * 4 + impl._index.nq * (d + 3) * 4
+    return dict(items=items, bytes=nbytes, bound_ms=nbytes / chip_smoke.HBM_BYTES * 1e3)
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--workload", required=True, help="a flat span cell of BENCHMARK.json")
@@ -98,6 +150,8 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--builds", type=int, default=200, help="timed eager builds")
     parser.add_argument("--traced", type=int, default=50, help="eager builds in the profiler's trace")
     parser.add_argument("--warm", type=int, default=20, help="untimed builds first")
+    parser.add_argument("--compare-build", action="store_true",
+                        help="also chip_smoke.py's timed compare_build at the converged positions")
     args = parser.parse_args(argv)
     import torch
 
@@ -128,6 +182,8 @@ def main(argv: list[str] | None = None) -> int:
         print(f"metric {name} = {s['value']!r} ms (median of {s['n']}; quartiles {s['q1']!r} .. {s['q3']!r})")
     for name, v in traced.items():
         print(f"metric {name} = {v!r} a build (trace of {args.traced})")
+    if args.compare_build:
+        out.update(compare_build(cell["name"], emb))
     print(json.dumps(dict(workload=cell["name"], seed=args.seed, iterations=emb.impl.iteration,
                           **out, **traced, device=device)))
     return 0

@@ -90,11 +90,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      clouds (every point equal, points on a line); converged girg100k d=2
      (phase 10) and d=4 (phase 13b), timed (each wrapper and each of the
      frame's kernels from graph replays, beside the parent's frame route),
-     with a ``build_trace`` line each (the kernels a build launches,
+     with a ``windows_kernel`` line each (the windows kernel's ms a call
+     from graph replays and its device ms from a trace of replays, also
+     with every radius factor +inf, where nothing is searched; bound,
+     shares, the card's name and power limit),
+     the windows on adversarial inputs made from their records (ties,
+     radius factors +inf and 0, planted NaN; f32 and f64), a
+     ``build_trace`` line each (the kernels a build launches,
      through the kernels and through the plain versions, at most
      BUILD_LAUNCH_LIMIT, three for the frame and no cuBLAS product) and a
      ``step_launch_account`` (a replayed step's events by phase); the cell
-     layout's build (the frame at K = 3) in phase 13b;
+     layout's build (the frame at K = 3) in phase 13b; and the windows
+     alone on synthetic indexes (300 rows; a longest row of 16^k and
+     16^k + 1; one of 2^21, with NB R max_row above 2^40 and an overflow
+     above 2^32), f32 and f64, a ``compare_windows`` line each;
  10. the span main path: the API on girg100k, d=2, seed 1,
      ``calculateEmbedding()``: below 1000 iterations, one sweep launch and
      one edge pass launch per iteration, one launch of each build kernel
@@ -1525,6 +1534,164 @@ def replay_kernel_ms(fn, reps: int) -> dict:
     return out
 
 
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def compare_windows(name: str, wargs) -> dict:
+    """``span_windows`` against its plain version on ``wargs`` (sorted
+    values, y, order1, index tables, widths): start tiles, needs and
+    overflow bitwise, one launch a call, two launches bitwise alike."""
+    import torch
+
+    from wembed_tpu_torch.kernels import span_build as sb
+
+    before = sb.span_windows.launches
+    win = sb.span_windows(*wargs)
+    torch.cuda.synchronize()
+    check(sb.span_windows.launches == before + 1, f"{name}: span_windows did not launch its kernel")
+    same_twice(f"{name}_windows", list(win), lambda: list(sb.span_windows(*wargs)))
+    win_p = sb.span_windows_reference(*wargs)
+    t = wargs[3]
+    row = dict(case=name, dtype=str(wargs[1].dtype).split(".")[1], rows=int(t.row_lo.shape[0]),
+               blocks=int(t.blk_first.shape[0]), max_row=int(t.max_row),
+               bitwise=[bitwise(a, b) for a, b in zip(win, win_p)], overflow=int(win_p[2]),
+               need=int(win_p[1].sum()), nonempty=int((win_p[1] > 0).sum()),
+               need_max_row=int((win_p[1] == t.max_row).sum()))
+    print("compare_windows " + json.dumps(row))
+    check(all(row["bitwise"]), f"{name}: span_windows differs from its plain version (start_tile, need, "
+                               f"overflow: {row['bitwise']})")
+    return row
+
+
+def adversarial_windows_inputs(wargs) -> dict:
+    """{label: (3, n) f64 sorted values} made from a case's windows
+    arguments: the second-axis values rounded to 8 values (ties
+    everywhere, +0.0 and -0.0 alternating; each row stays sorted), the
+    radius factors scaled to +inf (every row in reach, every window its
+    whole row) and to 0, and NaN planted at the tail of the shortest row,
+    over the last query block of the longest (its minx and maxx, so NaN
+    bounds; each row stays sorted with NaN last, as torch sorts) and in
+    one block's first-axis values, with the radius factors scaled by 64
+    (many windows in reach and searched)."""
+    import torch
+
+    sorted_xyl, _, _, t, _ = wargs
+    xyl = sorted_xyl.double()
+    x0 = xyl[0]
+    lo, hi = float(x0.min()), float(x0.max())
+    q = torch.floor((x0 - lo) / max(hi - lo, 1e-30) * 7.999)  # monotone in x
+    ties = (q - 3.0) * (hi - lo) / 8.0
+    zeros = (ties == 0).nonzero().flatten()
+    ties[zeros[::2]] = -0.0
+    cases = {"ties8": torch.stack([ties, xyl[1], xyl[2]])}
+    c = xyl.clone()
+    c[2] = float("inf")
+    cases["lw_inf"] = c
+    c = xyl.clone()
+    c[2] = 0.0
+    cases["lw_zero"] = c
+    sizes = (t.row_hi - t.row_lo + 1).cpu()
+    short, long = int(sizes.argmin()), int(sizes.argmax())
+    c = xyl.clone()
+    c[0, t.row_hi[short]] = float("nan")
+    tail = int(t.blk_first[t.blk_last == t.row_hi[long]][0])  # the first rank of the row's last block
+    c[0, tail:int(t.row_hi[long]) + 1] = float("nan")
+    c[1, t.src_of_q[0].long()] = float("nan")
+    c[2] = c[2] * 64.0
+    cases["nan"] = c
+    return cases
+
+
+def windows_adversarial(name: str, wargs) -> dict:
+    """``compare_windows`` on ``adversarial_windows_inputs``, each in f32
+    and f64."""
+    import torch
+
+    _, y, order1, t, blk = wargs
+    rows = {}
+    for label, xyl in adversarial_windows_inputs(wargs).items():
+        for dtype in (torch.float32, torch.float64):
+            tag = f"{name}_{label}_{str(dtype).split('.')[1]}"
+            rows[tag] = compare_windows(tag, (xyl.to(dtype), y.to(dtype), order1, t, blk))
+    check(all(r["need_max_row"] > 0 for k, r in rows.items() if "_lw_inf_" in k),
+          f"{name}: no window of the +inf radius case took the whole longest row")
+    return rows
+
+
+def synthetic_windows_case(rows: int, max_row: int, seed: int, dtype, device: str = "cuda", reach: float = 1.0):
+    """``span_windows`` arguments of a synthetic index: ``rows`` rows of
+    1-40 members and one of ``max_row``, each row's second-axis values
+    drawn from 11 (ties, -0.0 beside +0.0, +-inf) and sorted, every 25th
+    row ending in NaN; query blocks of up to 256 consecutive ranks of one
+    row; random first-axis values, radius factors (scaled by ``reach``)
+    and widths of 0-3 tiles."""
+    import types
+
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 41, size=rows)
+    sizes[rng.integers(rows)] = max_row
+    row_lo = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    n = int(sizes.sum())
+    values = np.array([-np.inf, -3.0, -1.5, -0.0, 0.0, 0.5, 0.75, 2.0, 7.0, 1e30, np.inf])
+    x = np.concatenate([values[np.sort(rng.integers(0, len(values), size=s))] for s in sizes])
+    for r in range(0, rows, 25):
+        x[row_lo[r] + sizes[r] - 1 - rng.integers(0, min(3, sizes[r])):row_lo[r] + sizes[r]] = np.nan
+    first, last, src = [], [], []
+    for r in range(rows):
+        for c in range(0, int(sizes[r]), 256):
+            ranks = np.arange(row_lo[r] + c, row_lo[r] + min(c + 256, sizes[r]))
+            first.append(ranks[0])
+            last.append(ranks[-1])
+            src.append(np.concatenate([ranks, np.full(256 - len(ranks), n)]))
+    nb = len(first)
+    dev = torch.device(device)
+
+    def on(a, kind):
+        return torch.as_tensor(np.asarray(a), dtype=kind, device=dev)
+
+    t = types.SimpleNamespace(
+        src_of_q=on(np.concatenate(src), torch.int32), blk_first=on(first, torch.int64),
+        blk_last=on(last, torch.int64), row_lo=on(row_lo, torch.int64), row_hi=on(row_lo + sizes - 1, torch.int64),
+        row_tiles=on((sizes + 255) // 256, torch.int64), bmax_row=on(rng.uniform(0.5, 2.0, rows), torch.float32),
+        max_row=int(max_row))
+    sorted_xyl = on(np.stack([x, rng.uniform(0.0, 100.0, n), rng.uniform(0.0, 1.0, n) * reach]), dtype)
+    y = on(rng.uniform(0.0, 100.0, n), dtype)
+    order1 = on(rng.permutation(n), torch.int64)
+    blk = on(rng.integers(0, 4, size=(nb, rows)), torch.int32)
+    return sorted_xyl, y, order1, t, blk
+
+
+def windows_cases_synthetic() -> dict:
+    """Phase 9d's windows-only synthetic cases, f32 and f64: more rows
+    than a CTA has threads (300, and the longest 4,097), a longest row of
+    exactly 16^k and 16^k + 1 (k = 2, 3), and a wide one: 256 rows, the
+    longest 2^21 (some 8,450 blocks: NB R max_row above 2^40), every radius
+    factor +inf, so that every window takes its whole row and the overflow
+    passes 2^32."""
+    import torch
+
+    rows = {}
+    for label, rr, max_row, reach in (("r300_m4097", 300, 4097, 1.0), ("r40_m4096", 40, 4096, 1.0),
+                                      ("r40_m256", 40, 256, 1.0), ("r40_m257", 40, 257, 1.0),
+                                      ("r256_m2097152_inf", 256, 1 << 21, float("inf"))):
+        for dtype in (torch.float32, torch.float64):
+            tag = f"windows_{label}_{str(dtype).split('.')[1]}"
+            rows[tag] = compare_windows(tag, synthetic_windows_case(rr, max_row, seed=rr + max_row, dtype=dtype,
+                                                                    reach=reach))
+    wide = rows["windows_r256_m2097152_inf_float32"]
+    check(wide["blocks"] * wide["rows"] * wide["max_row"] >= 2 ** 40 and wide["overflow"] >= 2 ** 32,
+          f"the wide windows case is too small: {wide}")
+    return rows
+
+
 def compare_build(name: str, case: dict, timed: bool = False) -> dict:
     """The structures build's kernels against their plain versions on the
     card, each on the inputs the build hands it at these tensors:
@@ -1533,7 +1700,8 @@ def compare_build(name: str, case: dict, timed: bool = False) -> dict:
     on the positions, ``principal_axes`` (K = 2, 3) on their covariance,
     ``span_records`` on the permutation that the frame's projections give,
     ``span_windows`` on its records; every output bitwise equal, one launch
-    a call, two launches bitwise alike.  Then the whole build through the
+    a call, two launches bitwise alike (timed cases: also the windows on
+    ``windows_adversarial``'s inputs).  Then the whole build through the
     kernels against the build through the plain versions (the parent's
     build, no kernel launched): every field bitwise equal, one launch of
     each kernel of the route.  ``timed``: ms a call of each wrapper and of
@@ -1557,7 +1725,7 @@ def compare_build(name: str, case: dict, timed: bool = False) -> dict:
     blk = idx.blk_t_tensor(dev)
     wrappers = build_wrappers()
     row = dict(case=name, n=n, d=d, dtype=str(dtype).split(".")[1], partial=in_index is not None,
-               rows=idx.num_rows, blocks=idx.nb, max_row=int(t.row_grid.shape[1]), frame_route=frame_route)
+               rows=idx.num_rows, blocks=idx.nb, max_row=t.max_row, frame_route=frame_route)
 
     def launched(what, fn):
         before = wrappers[what].launches
@@ -1582,19 +1750,13 @@ def compare_build(name: str, case: dict, timed: bool = False) -> dict:
         row[f"frame{k}_bitwise"] = all(bitwise(a, b) for a, b in zip(frame, frame_p))
         row[f"frame{k}_finite"] = all(bool(torch.isfinite(a).all()) for a in frame)
         err["principal_frame"] = max(err.get("principal_frame", 0.0), max_abs_diff(frame, frame_p))
-    _, proj = sb.principal_frame(pos, 2)
-    y = proj[0]
-    x = proj[1] if d >= 2 else y
-    order1 = span_sparse._argsort_by(y, t.group_of)
-    order = order1[span_sparse._argsort_by(x[order1], t.row_key)]
-    vrec = idx.vertex_records(weights, inv_w, colors, dtype, float(opts.edge_length))
-    rargs = (order, pos, vrec, x, y, t, in_index)
-    rec = launched("span_records", lambda: sb.span_records(*rargs))
+    steps = launched("span_records", lambda: span_sparse.build_steps(pos, inv_w, weights, colors, idx, opts, blk,
+                                                                      in_index))
+    rargs, rec, wargs = steps
     same_twice(f"{name}_records", list(rec), lambda: list(sb.span_records(*rargs)))
     rec_p = sb.span_records_reference(*rargs)
     row["records_bitwise"] = all(bitwise(a, b) for a, b in zip(rec, rec_p))
     err["span_records"] = max_abs_diff(rec, rec_p)
-    wargs = (rec.sorted, y, order1, t, blk)
     win = launched("span_windows", lambda: sb.span_windows(*wargs))
     same_twice(f"{name}_windows", list(win), lambda: list(sb.span_windows(*wargs)))
     win_p = sb.span_windows_reference(*wargs)
@@ -1637,7 +1799,18 @@ def compare_build(name: str, case: dict, timed: bool = False) -> dict:
             return sb._general_frame(pos, 2, sb.ITERS, sb.principal_axes)
 
         timing["parent_frame"] = dict(ms=replay_ms(parent_frame, 50), kernels=replay_kernel_ms(parent_frame, 50))
+        w = timing["span_windows"]
+        w["kernel_ms"] = replay_kernel_ms(lambda: sb.span_windows(*wargs), 200)["span_windows_kernel"]
+        # the same windows with every radius factor +inf: every bound settles
+        # from its row's ends, so the kernel searches nothing
+        settled = (adversarial_windows_inputs(wargs)["lw_inf"].to(dtype), *wargs[1:])
+        w["settled_kernel_ms"] = replay_kernel_ms(lambda: sb.span_windows(*settled), 200)["span_windows_kernel"]
         row["timing"] = timing
+        print("windows_kernel " + json.dumps(dict(case=name, ms=w["ms"], kernel_ms=w["kernel_ms"], bound_ms=w["bound_ms"],
+                                                  share=w["share"], kernel_share=w["bound_ms"] / w["kernel_ms"],
+                                                  settled_kernel_ms=w["settled_kernel_ms"],
+                                                  plain_ms=w["plain_ms"], card=card_line())))
+        row["windows_adversarial"] = windows_adversarial(name, wargs)
         row["build_ms"] = replay_ms(lambda: idx.structures(pos, inv_w, weights, colors, opts, blk, in_index), 20)
         with plain_build():
             row["plain_build_ms"] = cuda_ms(lambda: idx.structures(pos, inv_w, weights, colors, opts, blk, in_index), 5)
@@ -1756,6 +1929,8 @@ def build_kernel_entries(rows: dict, traces: dict, d4: dict, paths: dict) -> lis
         timing = conv["timing"][name]
         if name == "principal_frame":
             extra = dict(kernels=timing["kernels"], parent_frame=conv["timing"]["parent_frame"])
+        elif name == "span_windows":
+            extra = dict(kernel_ms=timing["kernel_ms"])  # its device time, from a trace of replays
         else:
             extra = {}
         entries.append({
@@ -3241,11 +3416,7 @@ def main() -> int:
 
     # ---- phase 1: the card; girg100k starts generating in the background
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    print(smi.stdout.strip())
+    print(card_line())
     kind = torch.cuda.get_device_name(0)
     generators = {path: start_graph(path, flags, md5) for path, flags, md5 in (
         (GIRG100K, GIRG100K_FLAGS, GIRG100K_MD5), (GIRG100K_D4, GIRG100K_D4_FLAGS, GIRG100K_D4_MD5))}
@@ -3536,6 +3707,7 @@ def run_phases(kind, generators: dict) -> int:
 
     # ---- phase 9d: the structures build's kernels on synthetic graphs
     build_rows.update(build_cases_synthetic())
+    windows_cases_synthetic()
 
     # ---- phase 9b: the general sweep (f32 at d > 8, f64)
     for d, dtype in ((16, None), (33, None), (2, f64), (16, f64)):

@@ -244,6 +244,35 @@ def test_windows_build_matches_jax_in_f64(d, sampled, windows):
         assert (s.srec.numpy()[:, 0] == -1e15).sum() > (idx.src_of_pad == c.n).sum()
 
 
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("weight", ["inf", "nan"])
+def test_windows_match_jax_at_unbounded_reach(d, weight):
+    """Every 97th vertex's weight +inf or NaN, so the largest radius factor
+    of every query block that holds one is too: with +inf every row is in
+    reach and each window's bounds are -inf and +inf, where the stop is
+    the row's own size (a search over +inf padding past the row's end
+    would give the longest row); with NaN no row is in reach.  Start
+    tiles, needs and overflow equal the JAX package's f32 build's, with
+    windows of at most one tile (so that they overflow)."""
+    c = case(d)
+    w = c.w.copy()
+    w[::97] = np.float32(weight)
+    narrow = np.minimum(c.idx.blk_t, 1)
+    pos, inv_w, _, colors = c.jax_args()
+    s_j = jax_span.build_span_structures(pos, inv_w, jnp.asarray(w), colors, c.jidx._with_blk_t(narrow), c.jopts)
+    tpos, tinv_w, _, tcolors = c.torch_args()
+    blk_t = torch.tensor(narrow)
+    s = span_sparse.build_span_structures(tpos, tinv_w, torch.tensor(w, dtype=F64), tcolors, c.idx, c.opts, blk_t)
+    for name in ("need", "start_tile"):
+        np.testing.assert_array_equal(getattr(s, name).numpy(), np.asarray(getattr(s_j, name)), err_msg=name)
+    assert int(s.overflow) == int(s_j.overflow) > 0
+    # the blocks that hold such a vertex: every window its whole row, or none
+    need = s.need.numpy()[np.unique(s.block_of.numpy()[::97])]
+    sizes = c.idx.row_sizes
+    assert sizes.min() < sizes.max()
+    np.testing.assert_array_equal(need, np.broadcast_to(sizes if weight == "inf" else 0, need.shape))
+
+
 @functools.lru_cache(maxsize=None)
 def cell_case(d: int):
     """A cell index at capacities the port measures at the case's

@@ -81,32 +81,53 @@
 // writes them as 16-byte vectors (the general instance, d > 8, writes each
 // row itself).  The slot maps are int32.  Every output is a copy.
 //
-// span_windows_kernel<T>: one CTA a query block b.  Its extrema: minx and
-// maxx at the static ranks blk_first[b] and blk_last[b] of the sorted
-// second-axis values, maxlw and the first-axis ymin / ymax over its 256
-// slots (padding counts 0, and is left out of ymin / ymax); then a thread
-// a target row r: reach = maxlw * bmax[r], overlap of the first-axis
-// ranges, and two binary searches over row r's own segment of the sorted
-// second-axis values, read as padded to the longest row with +inf, which
-// is what torch.searchsorted(side="left" / "right") sees in the plain
-// version's (R, max row size) matrix.  Then the window's start tile, the
-// members it needs and its overflow, in int64.  The block's overflow goes
-// to a slot of `part`; the last CTA to finish (a device counter, which it
-// resets for the next launch or graph replay) adds the slots: integers,
-// so the total is exact in any order.
-//
+// span_windows_kernel<T>: one CTA a query block b, every thread at work.
+// First every load that no search waits on: the block's 256 slots (its
+// radius factors and first-axis values), its second-axis extrema minx and
+// maxx at the static ranks blk_first[b] and blk_last[b], and a target row
+// a thread (its tables, its first-axis extrema at static ranks of the
+// first sort, its first and last sorted second-axis values), so no chain
+// before the searches is more than three loads deep.  The block's maxlw
+// and first-axis ymin / ymax (padding counts 0, and is left out of ymin /
+// ymax) by xor shuffles and one shared-memory step.  Then each thread's
+// row: reach = maxlw * bmax[r] and the overlap of the first-axis ranges,
+// and the window's two bounds over the row's own segment of the sorted
+// second-axis values, as the JAX package searches it: start, the values
+// x < minx - reach, and stop, the values x <= maxx + reach.  Both tests
+// are monotone along a row sorted ascending with NaN last, so any search
+// that finds where a test flips gives the plain version's bound.  Most
+// bounds settle from the row's ends: a first value that does not go
+// before the bound gives 0, a last value that does the row's size.  The
+// windows with a bound left are listed by ballot and shared by the warps,
+// four windows a warp: a group of 4 lanes finds a start, the next group
+// its stop, in 4-ary rounds, a ballot of 4 pivots each, ending where the
+// test flips.  Then each window's start tile, the members it needs and
+// its overflow, in int64, written by its row's thread; the block's
+// overflow by shuffles, one integer atomic into a device sum and a CTA
+// count taken with release and acquire order, so the last CTA to finish
+// sees the total, writes it and sets both back to 0 for the next launch
+// or graph replay: integers, so the total is exact in any order, as is
+// every output (the float values reach the integers through comparisons
+// only, which the order of the max / min cannot change).
+
 // What bounds the records and windows on an H100: bytes.  Read once, the
 // positions, the vertex rows, the projections and the permutations;
 // written once, the records (NQ + NPA rows of d + 3 values), the colours,
 // the inverse maps (4 x 8 bytes a vertex), the sorted values and the
 // (NB, R) window tables.  The records kernel gathers a vertex's rows
-// through `order` (random rows, from L2); the windows kernel's searches
-// are ~log2(row) dependent loads a window.
+// through `order` (random rows, from L2).  The windows kernel is latency
+// and L2 sectors: its chains of dependent loads (three before the
+// searches, then a round of each search, ceil(log4(row + 1)) at most),
+// its barriers and the finish's ordered atomic, and a 32-byte sector for each
+// pivot of a round, which is why the bounds that settle from the row's
+// ends are not searched and a bound takes 4 lanes, not 16.
 //
 // The device counters make two launches of one kernel on two streams at
 // once unsafe; the port builds on one stream.
 
 #include <cuda_runtime.h>
+
+#include <cuda/atomic>
 
 #include <cmath>
 #include <cstdint>
@@ -186,7 +207,6 @@ struct WindowsArgs {
   const int32_t* blk_t;      // (NB, R) window widths in tiles
   int32_t* start_tile;       // (NB, R) out
   int64_t* need;             // (NB, R) out
-  int64_t* part;             // (NB,) scratch: each block's overflow
   int64_t* overflow;         // (1,) out
   int64_t n, nb, r, max_row;
 };
@@ -696,111 +716,242 @@ __device__ __forceinline__ T min_nan(T a, T b) {
   return (a != a || a < b) ? a : b;
 }
 
-// The first i in [0, len) with !(x(i) < value) (right: !(x(i) <= value)),
-// len if none, where x(i) = xs[i] below `size` and +inf from there: the
-// row as torch.searchsorted sees it in the plain version's +inf-padded
-// (R, max row size) matrix.
-template <typename T, bool kRight>
-__device__ __forceinline__ int search_row(const T* xs, int size, int len, T value) {
-  int lo = 0, hi = len;  // 32-bit: rows are shorter than 2^31 (the wrapper checks); 64-bit spilled
-  while (lo < hi) {
-    const int mid = lo + (hi - lo) / 2;
-    const T x = mid < size ? xs[mid] : static_cast<T>(INFINITY);
-    const bool before = kRight ? (x <= value) : (x < value);
-    if (before) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
+// The JAX package's tests (wembed_tpu/kernels/span_sparse.py:1206 bsearch):
+// x goes before `value` on the left when x < value, on the right when x <=
+// value.  Along a row sorted ascending with NaN last both are monotone
+// (true ... true, false ... false): a NaN goes before no value, and no
+// value goes before NaN.
+template <typename T>
+__device__ __forceinline__ bool goes_before(T x, T value, bool right) {
+  return right ? x <= value : x < value;
 }
 
 __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
 __device__ __forceinline__ int64_t imax(int64_t a, int64_t b) { return a > b ? a : b; }
 
-// CTAs of span_windows_kernel that have finished this launch; the last
-// one adds the blocks' overflow and sets it back to 0.
+// What a thread reads of its target row r before its block's extrema are
+// known: every load that no search waits on.
+template <typename T>
+struct WindowRow {
+  int64_t lo;     // first sorted rank
+  int64_t tiles;  // tiles of the row
+  T ymin, ymax;   // its first-axis extrema, at static ranks of the first sort
+  T first, last;  // its first and last sorted second-axis values
+  float bmax;     // bmax^(1/d) of its group
+  int size;       // members
+  int t;          // the window's width in tiles, blk_t[b][r]
+};
+
+template <typename T>
+__device__ __forceinline__ WindowRow<T> load_window_row(const WindowsArgs& a, int64_t b, int64_t r) {
+  WindowRow<T> w{};
+  if (r < a.r) {
+    const T* xs = static_cast<const T*>(a.sorted);
+    const T* y = static_cast<const T*>(a.y);
+    const int64_t hi = a.row_hi[r];
+    w.lo = a.row_lo[r];
+    w.tiles = a.row_tiles[r];
+    w.bmax = a.bmax_row[r];
+    w.t = a.blk_t[b * a.r + r];
+    w.size = static_cast<int>(hi - w.lo + 1);
+    w.ymin = y[a.order1[w.lo]];
+    w.ymax = y[a.order1[hi]];
+    w.first = xs[w.lo];
+    w.last = xs[hi];
+  }
+  return w;
+}
+
+// A bound that needs no search, or -1: 0 where the row's first value does
+// not go before `v`, the row's size where its last value does, and a
+// search inside the row else.
+template <typename T>
+__device__ __forceinline__ int settled_bound(T v, bool right, const WindowRow<T>& row) {
+  if (!goes_before(row.first, v, right)) return 0;
+  if (goes_before(row.last, v, right)) return row.size;
+  return -1;
+}
+
+// Window w's outputs from its bounds [start, stop): the T-tile window slid
+// to cover them where it can (end at ceil(stop / ST), never start after
+// floor(start / ST), stay inside the row) and the members it needs;
+// returns its overflow.
+__device__ __forceinline__ int64_t place_window(const WindowsArgs& a, int64_t w, int64_t start, int64_t stop,
+                                                int64_t t_blk, int64_t tiles) {
+  int64_t st = imin((stop + kST - 1) / kST - t_blk, start / kST);
+  st = imin(imax(st, 0), tiles - t_blk);
+  const int64_t cov_end = (st + t_blk) * kST;
+  a.start_tile[w] = static_cast<int32_t>(st);
+  a.need[w] = stop > start ? stop - (start / kST) * kST : 0;
+  return imax(imin(stop - cov_end, stop - start), 0);
+}
+
+// The slot (thread of the CTA) of the i-th listed window, in slot order:
+// listed[w] holds warp w's ballot.
+__device__ __forceinline__ int listed_slot(const unsigned* listed, int i) {
+  int w = 0;
+  while (i >= __popc(listed[w])) i -= __popc(listed[w++]);
+  unsigned m = listed[w];
+  for (; i > 0; --i) m &= m - 1;  // drop the i lowest listed slots
+  return w * 32 + __ffs(m) - 1;
+}
+
+// The search's shape: each pivot is a scattered 4-byte load, a 32-byte L2
+// sector of its own, so the sectors a search loads weigh as much as its
+// rounds: 4 lanes a bound (a 4-ary search, 6 rounds and 24 pivots at 3,584
+// values) rather than 16 (3 rounds, 48 pivots); PERF.md, the kernel table.
+constexpr int kFan = 4;                             // lanes a bound, pivots a round
+constexpr int kGroupWindows = 32 / (2 * kFan);      // windows a warp searches at once
+static_assert(kFan * 2 * kGroupWindows == 32, "a warp holds whole windows");
+
+// span_windows_kernel's finish: the overflow of the CTAs that have
+// finished this launch, and their count.  A CTA adds its overflow, then
+// counts itself with release and acquire order, so the CTA that counts
+// gridDim.x - 1 sees every other's sum; it writes the total and sets both
+// back to 0 for the next launch or graph replay.
+__device__ unsigned long long g_window_overflow;
 __device__ unsigned int g_window_ctas_done;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) span_windows_kernel(const WindowsArgs a) {
-  __shared__ T s_max[kThreads], s_ymin[kThreads], s_ymax[kThreads];
-  __shared__ int64_t s_over[kThreads];
-  __shared__ bool s_last;
+  __shared__ T s_ext[3][kWarps];     // each warp's maxlw, ymin, ymax
+  __shared__ T s_v[2][kThreads];     // a slot's values: minx - reach, maxx + reach
+  __shared__ int s_bound[2][kThreads];  // a slot's start and stop; -1 until searched
+  __shared__ int64_t s_lo[kThreads];
+  __shared__ int s_size[kThreads];   // its row's size
+  __shared__ unsigned s_listed[kWarps];
+  __shared__ int64_t s_over[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t b = blockIdx.x;
   const int64_t n = a.n;
   const T* xs = static_cast<const T*>(a.sorted);
-  const T* ys = xs + n;
-  const T* lws = xs + 2 * n;
   const T big = sizeof(T) == 4 ? static_cast<T>(3.4028234663852886e38) : static_cast<T>(1.7976931348623157e308);
-  {
-    const int64_t r = a.src_of_q[b * kQ + threadIdx.x];
-    const bool valid = r < n;
-    s_max[threadIdx.x] = valid ? lws[r] : T(0);
-    s_ymin[threadIdx.x] = valid ? ys[r] : big;
-    s_ymax[threadIdx.x] = valid ? ys[r] : -big;
+
+  // Every load that no search waits on goes out first: the block's slot,
+  // its second-axis extrema at static ranks, the first target rows.
+  const int64_t src = a.src_of_q[b * kQ + threadIdx.x];
+  const int64_t first = a.blk_first[b], last = a.blk_last[b];
+  WindowRow<T> row = load_window_row<T>(a, b, threadIdx.x);
+  const bool valid = src < n;
+  T lw = valid ? xs[2 * n + src] : T(0);
+  const T yq = valid ? xs[n + src] : T(0);
+  T ylo = valid ? yq : big;
+  T yhi = valid ? yq : -big;
+  const T minx = xs[first];
+  const T maxx = xs[last];
+
+  // The block's extrema over its 256 slots (padding: 0, and left out of
+  // ymin / ymax): xor shuffles, then the eight warps' through shared memory.
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lw = max_nan(lw, __shfl_xor_sync(kFull, lw, o));
+    ylo = min_nan(ylo, __shfl_xor_sync(kFull, ylo, o));
+    yhi = max_nan(yhi, __shfl_xor_sync(kFull, yhi, o));
+  }
+  if (lane == 0) {
+    s_ext[0][warp] = lw;
+    s_ext[1][warp] = ylo;
+    s_ext[2][warp] = yhi;
   }
   __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) {
-      s_max[threadIdx.x] = max_nan(s_max[threadIdx.x], s_max[threadIdx.x + stride]);
-      s_ymin[threadIdx.x] = min_nan(s_ymin[threadIdx.x], s_ymin[threadIdx.x + stride]);
-      s_ymax[threadIdx.x] = max_nan(s_ymax[threadIdx.x], s_ymax[threadIdx.x + stride]);
-    }
-    __syncthreads();
+  T maxlw = s_ext[0][0], ymin_blk = s_ext[1][0], ymax_blk = s_ext[2][0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) {
+    maxlw = max_nan(maxlw, s_ext[0][w]);
+    ymin_blk = min_nan(ymin_blk, s_ext[1][w]);
+    ymax_blk = max_nan(ymax_blk, s_ext[2][w]);
   }
-  const T maxlw = s_max[0], ymin_blk = s_ymin[0], ymax_blk = s_ymax[0];
-  const T minx = xs[a.blk_first[b]];
-  const T maxx = xs[a.blk_last[b]];
-  const T* y = static_cast<const T*>(a.y);
+
+  const int group = lane / kFan, pivot = lane % kFan;
+  const int side = group & 1;  // even groups search start, odd groups stop
   int64_t over = 0;
-  for (int64_t r = threadIdx.x; r < a.r; r += kThreads) {
-    const int64_t lo_rank = a.row_lo[r], hi_rank = a.row_hi[r];
-    const T row_ymin = y[a.order1[lo_rank]];
-    const T row_ymax = y[a.order1[hi_rank]];
-    const T reach = maxlw * static_cast<T>(a.bmax_row[r]);
-    const bool overlap = (ymin_blk - reach <= row_ymax) && (ymax_blk + reach >= row_ymin);
-    int64_t start = 0, stop = 0;
-    if (overlap) {
-      const T* row = xs + lo_rank;
-      const int size = static_cast<int>(hi_rank - lo_rank + 1);
-      start = search_row<T, false>(row, size, static_cast<int>(a.max_row), minx - reach);
-      stop = search_row<T, true>(row, size, static_cast<int>(a.max_row), maxx + reach);
+  for (int64_t base = 0; base < a.r; base += kThreads) {  // 256 target rows a round, a thread each
+    const int64_t r = base + threadIdx.x;
+    bool listed = false;
+    if (r < a.r) {
+      const T reach = maxlw * static_cast<T>(row.bmax);
+      int start = 0, stop = 0;
+      if ((ymin_blk - reach <= row.ymax) && (ymax_blk + reach >= row.ymin)) {
+        const T lo_v = minx - reach, hi_v = maxx + reach;
+        start = settled_bound(lo_v, false, row);
+        stop = settled_bound(hi_v, true, row);
+        s_v[0][threadIdx.x] = lo_v;
+        s_v[1][threadIdx.x] = hi_v;
+        s_lo[threadIdx.x] = row.lo;
+        s_size[threadIdx.x] = row.size;
+        listed = start < 0 || stop < 0;
+      }
+      s_bound[0][threadIdx.x] = start;
+      s_bound[1][threadIdx.x] = stop;
     }
-    const int64_t t_blk = a.blk_t[b * a.r + r];
-    int64_t st = imin((stop + kST - 1) / kST - t_blk, start / kST);
-    st = imin(imax(st, 0), a.row_tiles[r] - t_blk);
-    const int64_t cov_end = (st + t_blk) * kST;
-    over += imax(imin(stop - cov_end, stop - start), 0);
-    a.start_tile[b * a.r + r] = static_cast<int32_t>(st);
-    a.need[b * a.r + r] = stop > start ? stop - (start / kST) * kST : 0;
-  }
-  s_over[threadIdx.x] = over;
-  __syncthreads();
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) s_over[threadIdx.x] += s_over[threadIdx.x + stride];
+    const unsigned ballot = __ballot_sync(kFull, listed);
+    if (lane == 0) s_listed[warp] = ballot;
     __syncthreads();
+    int count = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) count += __popc(s_listed[w]);
+
+    // The listed windows, kGroupWindows a warp: each bound left to find by
+    // a group of kFan lanes, start on the even groups, stop on the odd ones.
+    for (int first_window = warp * kGroupWindows; first_window < count; first_window += kWarps * kGroupWindows) {
+      const int i = first_window + group / 2;
+      int lo = 0, hi = 0, slot = -1, found = -1;
+      T v = T(0);
+      const T* xr = xs;
+      if (i < count) {
+        slot = listed_slot(s_listed, i);
+        const int size = s_size[slot];
+        found = s_bound[side][slot];
+        v = s_v[side][slot];
+        xr = xs + s_lo[slot];
+        if (found < 0) {
+          lo = 1;  // its first value goes before and its last does not
+          hi = size - 1;
+        }
+      }
+      // A round: lane k of a group tests pivot lo + (k + 1) s - 1 of the
+      // m = hi - lo values left, s = ceil(m / kFan), a pivot at or past hi
+      // testing false without a load; the test is monotone along the row,
+      // so the c lanes whose value goes before are lanes 0 ... c - 1, and
+      // the bound is in [lo + c s, lo + c s + s - 1]: m falls to at most
+      // s - 1 a round.  Unsigned offsets and min(hi, ...) taken as a
+      // difference keep every row below 2^31 - 1 inside int.
+      for (;;) {
+        const int m = hi - lo;
+        const int step = (m + kFan - 1) / kFan;
+        const unsigned off = (pivot + 1u) * static_cast<unsigned>(step) - 1u;  // m = 0: no pivot
+        const bool before = off < static_cast<unsigned>(m) && goes_before(xr[lo + off], v, side == 1);
+        const unsigned votes = (__ballot_sync(kFull, before) >> (group * kFan)) & ((1u << kFan) - 1u);
+        if (m > 0) {
+          const int next = lo + __popc(votes) * step;
+          hi = hi - next < step ? hi : next + step - 1;
+          lo = next;
+        }
+        if (!__any_sync(kFull, hi > lo)) break;
+      }
+      if (pivot == 0 && slot >= 0) s_bound[side][slot] = found >= 0 ? found : lo;
+    }
+    __syncthreads();
+    if (r < a.r) over += place_window(a, b * a.r + r, s_bound[0][threadIdx.x], s_bound[1][threadIdx.x], row.t, row.tiles);
+    if (base + kThreads < a.r) row = load_window_row<T>(a, b, base + kThreads + threadIdx.x);
   }
+
+  // The block's overflow: a warp's by shuffles, the eight warps' in shared
+  // memory, then integer atomics (exact in any order).
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) over += __shfl_xor_sync(kFull, over, o);
+  if (lane == 0) s_over[warp] = over;
+  __syncthreads();
   if (threadIdx.x == 0) {
-    a.part[b] = s_over[0];
-    __threadfence();
-    s_last = atomicAdd(&g_window_ctas_done, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (s_last) {
-    __threadfence();
-    int64_t total = 0;
-    for (int64_t i = threadIdx.x; i < a.nb; i += kThreads) total += a.part[i];
-    s_over[threadIdx.x] = total;
-    __syncthreads();
-    for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-      if (threadIdx.x < stride) s_over[threadIdx.x] += s_over[threadIdx.x + stride];
-      __syncthreads();
-    }
-    if (threadIdx.x == 0) {
-      a.overflow[0] = s_over[0];
-      g_window_ctas_done = 0;
+    unsigned long long total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += static_cast<unsigned long long>(s_over[w]);
+    cuda::atomic_ref<unsigned long long, cuda::thread_scope_device> sum(g_window_overflow);
+    cuda::atomic_ref<unsigned int, cuda::thread_scope_device> done(g_window_ctas_done);
+    if (total != 0) sum.fetch_add(total, cuda::memory_order_relaxed);
+    if (done.fetch_add(1u, cuda::memory_order_acq_rel) == gridDim.x - 1) {
+      a.overflow[0] = static_cast<int64_t>(sum.exchange(0ull, cuda::memory_order_relaxed));
+      done.store(0u, cuda::memory_order_relaxed);
     }
   }
 }

@@ -29,7 +29,10 @@ order, so it is bitwise its plain version.
                    through shared memory as 16-byte stores
                    (``span_records_kernel<T, D>``)
   span_windows     each (query block, row) window's start tile and need,
-                   and the overflow, one CTA a query block
+                   and the overflow, one CTA a query block: the bounds
+                   that the row's ends do not settle found by 4 lanes
+                   each in 4-ary rounds, four windows a warp, torch's own
+                   binary search on a row that ends in NaN
                    (``span_windows_kernel<T>``)
 
 Each wrapper launches its kernel for CUDA tensors, on the current stream
@@ -439,6 +442,26 @@ span_records.launches = 0
 # ------------------------------------------------------------------ windows
 
 
+def _row_search(x_s, t, value, right: bool):
+    """Each window's bound in its row, the JAX package's ``bsearch``
+    (wembed_tpu/kernels/span_sparse.py:1196): one branchless binary search
+    for all (NB, R) values at once, each confined to its row's own sorted
+    ranks, for the values x < value (x <= value on the ``right``).  Along a
+    row sorted ascending with NaN last both tests are monotone, so this is
+    where the test flips, as a rank in the row."""
+    n = x_s.shape[0]
+    lo = t.row_lo.expand_as(value)
+    hi = (t.row_hi + 1).expand_as(value)
+    for _ in range(int(t.max_row).bit_length() + 1):
+        active = lo < hi
+        mid = (lo + hi) // 2
+        x = x_s[torch.clamp_max(mid, n - 1)]
+        pred = (x <= value) if right else (x < value)
+        lo = torch.where(active & pred, mid + 1, lo)
+        hi = torch.where(active & ~pred, mid, hi)
+    return lo - t.row_lo
+
+
 def span_windows_reference(sorted_xyl, y, order1, t, blk_t):
     """Plain version of ``span_windows``: per-block conservative windows in
     both axes.  A block is a contiguous rank range of its row, so its
@@ -467,13 +490,8 @@ def span_windows_reference(sorted_xyl, y, order1, t, blk_t):
     )
     lo = minx[:, None] - reach
     hi = maxx[:, None] + reach
-    # every bound in one batched search over the rows' sorted second-axis
-    # values, +inf past each row's end
-    xrows = _with_sentinel(x_s, float("inf"))[t.row_grid]  # (R, max row size)
-    start = torch.searchsorted(xrows, lo.T.contiguous(), side="left").T
-    stop = torch.searchsorted(xrows, hi.T.contiguous(), side="right").T
-    start = torch.where(overlap, start, 0)
-    stop = torch.where(overlap, stop, 0)
+    start = torch.where(overlap, _row_search(x_s, t, lo, right=False), 0)
+    stop = torch.where(overlap, _row_search(x_s, t, hi, right=True), 0)
 
     # slide the T-tile window to cover [start, stop) when it can: end at
     # ceil(stop/ST), never start after floor(start/ST), stay inside the row
@@ -494,7 +512,7 @@ class _WindowsArgs(ctypes.Structure):
     _fields_ = [
         *((name, ctypes.c_void_p) for name in (
             "sorted", "y", "order1", "src_of_q", "blk_first", "blk_last", "row_lo", "row_hi",
-            "row_tiles", "bmax_row", "blk_t", "start_tile", "need", "part", "overflow",
+            "row_tiles", "bmax_row", "blk_t", "start_tile", "need", "overflow",
         )),
         *((name, ctypes.c_int64) for name in ("n", "nb", "r", "max_row")),
     ]
@@ -532,15 +550,14 @@ def span_windows(sorted_xyl, y, order1, t, blk_t):
         raise ValueError("the span_windows kernel reads blk_t as contiguous int32, in place")
     start_tile = torch.empty((nb, rr), dtype=torch.int32, device=device)
     need = torch.empty((nb, rr), dtype=torch.int64, device=device)
-    part = torch.empty((nb,), dtype=torch.int64, device=device)
     overflow = torch.empty((), dtype=torch.int64, device=device)
     inputs = dict(sorted=sorted_xyl, y=y, order1=order1, src_of_q=t.src_of_q, blk_first=t.blk_first,
                   blk_last=t.blk_last, row_lo=t.row_lo, row_hi=t.row_hi, row_tiles=t.row_tiles,
                   bmax_row=t.bmax_row)
     keep = {name: v.contiguous() for name, v in inputs.items()}
     args = _WindowsArgs(**{name: _ptr(v) for name, v in keep.items()}, blk_t=_ptr(blk_t),
-                        start_tile=_ptr(start_tile), need=_ptr(need), part=_ptr(part),
-                        overflow=_ptr(overflow), n=n, nb=nb, r=rr, max_row=t.row_grid.shape[1])
+                        start_tile=_ptr(start_tile), need=_ptr(need), overflow=_ptr(overflow), n=n, nb=nb, r=rr,
+                        max_row=t.max_row)
     _launch(_library().wembed_span_windows, args, dtype == torch.float64, device, "span_windows")
     span_windows.launches += 1
     return start_tile, need, overflow

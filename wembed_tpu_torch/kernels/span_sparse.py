@@ -151,7 +151,7 @@ class SpanTensors(NamedTuple):
     sorted_shift_q: torch.Tensor  # (n,) i32
     src_of_pad: torch.Tensor  # (NPA,) i32, n = sentinel
     src_of_q: torch.Tensor  # (NQ,) i32, n = sentinel
-    row_grid: torch.Tensor  # (R, max row size) i64 sorted rank, n = past the row
+    max_row: int  # the longest row's size
     blk_first: torch.Tensor  # (NB,) i64
     blk_last: torch.Tensor  # (NB,) i64
     row_lo: torch.Tensor  # (R,) i64 first sorted rank of each row
@@ -243,13 +243,6 @@ class SpanIndex:
         key = str(device)
         cached = self._tensors.get(key)
         if cached is None:
-            n = self.n
-            max_sz = int(np.max(self.row_sizes))
-            k = np.arange(max_sz)[None, :]
-            row_grid = np.where(
-                k < self.row_sizes[:, None], self.row_moff[:, None] + k, n
-            )
-
             def i64(a):
                 return torch.as_tensor(np.asarray(a, np.int64), device=device)
 
@@ -268,7 +261,7 @@ class SpanIndex:
                 sorted_shift_q=i32(self.sorted_shift_q),
                 src_of_pad=i32(self.src_of_pad),
                 src_of_q=i32(self.src_of_q),
-                row_grid=i64(row_grid),
+                max_row=int(np.max(self.row_sizes)),
                 blk_first=i64(self.blk_first),
                 blk_last=i64(self.blk_last),
                 row_lo=i64(self.row_moff),
@@ -606,6 +599,49 @@ def _argsort_by(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
     return o[torch.argsort(major[o], stable=True)]
 
 
+class BuildSteps(NamedTuple):
+    """What ``build_span_structures`` hands its records and windows
+    kernels."""
+
+    records_args: tuple  # span_records's: (order, positions, vrec, x, y, t, in_index)
+    records: span_build.SpanRecords  # their outputs
+    windows_args: tuple  # span_windows's: (sorted values, y, order1, t, blk_t as int32)
+
+
+def build_steps(
+    positions: torch.Tensor,
+    inv_w: torch.Tensor,
+    weights: torch.Tensor,
+    colors: torch.Tensor,
+    idx: SpanIndex,
+    opts,
+    blk_t: torch.Tensor | None = None,
+    in_index: torch.Tensor | None = None,
+) -> BuildSteps:
+    """The build up to its windows: the principal frame, both sorts and the
+    records, with the windows' arguments (``build_span_structures``)."""
+    d = positions.shape[1]
+    dtype, device = positions.dtype, positions.device
+    t = idx.tensors(device)
+    if blk_t is None:
+        blk_t = idx.blk_t_tensor(device)
+    blk_t = blk_t.to(torch.int32).contiguous()
+
+    _, proj = span_build.principal_frame(positions, 2)
+    y = proj[0]  # binning axis
+    x = proj[1] if d >= 2 else y  # d == 1: search the projection itself
+
+    # sort 1: (group, y) gives each vertex's first-axis rank, hence its row;
+    # sort 2: (row, x), composed so no inverse is needed
+    order1 = _argsort_by(y, t.group_of)
+    order = order1[_argsort_by(x[order1], t.row_key)]
+
+    vrec = idx.vertex_records(weights, inv_w, colors, dtype, float(opts.edge_length))
+    records_args = (order, positions, vrec, x, y, t, in_index)
+    rec = span_build.span_records(*records_args)
+    return BuildSteps(records_args, rec, (rec.sorted, y, order1, t, blk_t))
+
+
 def build_span_structures(
     positions: torch.Tensor,
     inv_w: torch.Tensor,
@@ -628,32 +664,16 @@ def build_span_structures(
     in-radius members beyond the windows whether sampled or not: a
     conservative count, so the windows may grow where the JAX package's
     spans would not, though the sampled set within them is the same."""
-    d = positions.shape[1]
-    dtype, device = positions.dtype, positions.device
-    t = idx.tensors(device)
-    if blk_t is None:
-        blk_t = idx.blk_t_tensor(device)
-    blk_t = blk_t.to(torch.int32).contiguous()
-
-    _, proj = span_build.principal_frame(positions, 2)
-    y = proj[0]  # binning axis
-    x = proj[1] if d >= 2 else y  # d == 1: search the projection itself
-
-    # sort 1: (group, y) gives each vertex's first-axis rank, hence its row;
-    # sort 2: (row, x), composed so no inverse is needed
-    order1 = _argsort_by(y, t.group_of)
-    order = order1[_argsort_by(x[order1], t.row_key)]
-
-    lwpow = idx.lwpow(weights, dtype, float(opts.edge_length))
-    vrec = idx.vertex_records(weights, inv_w, colors, dtype, float(opts.edge_length))
-    rec = span_build.span_records(order, positions, vrec, x, y, t, in_index)
-    start_tile, need, overflow = span_build.span_windows(rec.sorted, y, order1, t, blk_t)
+    lwpow = idx.lwpow(weights, positions.dtype, float(opts.edge_length))
+    steps = build_steps(positions, inv_w, weights, colors, idx, opts, blk_t, in_index)
+    rec = steps.records
+    start_tile, need, overflow = span_build.span_windows(*steps.windows_args)
     return SpanStructures(
         qrec=rec.qrec,
         qcol=rec.qcol,
         srec=rec.srec,
         scol=rec.scol,
-        blk_t=blk_t,
+        blk_t=steps.windows_args[4],
         start_tile=start_tile,
         rank_of=rec.inv[:, 0],
         block_of=rec.inv[:, 1],
