@@ -13,11 +13,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      source) and the layered path's host label propagation (g++), all
      started together, compiled even where a library of the same sources
      exists; print the kernels' registers and spills (and a
-     ``ptxas_span_sweep``, ``ptxas_edge_pass`` and ``ptxas_span_build``
-     lines: the fast kernels' registers and spills at each d), and fail on
-     any spill of the dense and sweep fast kernels in f32 at d <= 4 and on
-     any in the edge pass and the structures build (every instantiation,
-     f32 and f64);
+     ``ptxas_span_sweep``, ``ptxas_span_reduce``, ``ptxas_edge_pass`` and
+     ``ptxas_span_build`` lines: the fast kernels' registers and spills at
+     each d), and fail on any spill of the dense and sweep fast kernels in
+     f32 at d <= 4 and on any in the sweep's reduction, the edge pass and
+     the structures build (every instantiation, f32 and f64);
   3. hold the fused force kernel against its plain PyTorch version on the
      card: girg10k d=2 with degree weights at positions after 20 steps of
      a seeded run (timed), n = 16384, the largest dense size (timed),
@@ -104,10 +104,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      alone on synthetic indexes (300 rows; a longest row of 16^k and
      16^k + 1; one of 2^21, with NB R max_row above 2^40 and an overflow
      above 2^32), f32 and f64, a ``compare_windows`` line each;
+ 9e. hold the sweep's reduction kernel alone (``span_sweep.span_reduce``)
+     against its plain version, bitwise on every output, on synthetic
+     scratches (-0.0, +-inf, NaN, subnormals, counts up to 4 x 256 x 256;
+     empty first, middle and last blocks, one-item blocks, a block of 300
+     items): the fast kernel at d = 1 ... 8, the general one at d = 16
+     (f32) and d = 2 (f64), each whole and over a slice that starts and
+     ends inside blocks, and a table of over 256 x 257 items (three search
+     rounds); at converged girg100k d=2 (phase 10) and d=4 (phase 13b) on
+     a sweep's own scratch (``span_sweep(scratch=)``, whose outputs must
+     be that reduction's) and a slice of it, timed: a ``reduce_converged``
+     line each (the reduction's device ms a call in a trace of
+     sweep-then-reduce pairs, alone on the scratch, the bytes bound and
+     share, ``torch.segment_reduce``'s device ms on the same scratch, the
+     plain version's ms, the run's launches, the card);
  10. the span main path: the API on girg100k, d=2, seed 1,
-     ``calculateEmbedding()``: below 1000 iterations, one sweep launch and
-     one edge pass launch per iteration, one launch of each build kernel
-     per iteration and growth measurement, final overflow 0, every state tensor finite, total loss
+     ``calculateEmbedding()``: below 1000 iterations, one sweep launch (and
+     one of its reduction) and one edge pass launch per iteration, one
+     launch of each build kernel per iteration and growth measurement,
+     final overflow 0, every state tensor finite, total loss
      within 1.15x the C++ reference's, MAP at least 0.9x the C++
      reference's; then a breakdown of a step at the converged positions by
      CUDA events (with the sweep at other item sizes) and a profile of 20
@@ -274,6 +289,7 @@ DEBUG_STEPS = 20
 REDUCE_STEPS = 50  # steps of the two-rank run that times its all-reduce
 GRAPH_STEPS = 120  # steps of each step-graph run: past the window changes at 50 and 100
 STEPS_TIMED = 20  # further single steps of each step-graph run, timed one by one
+EDGE_S = 0.05  # idle seconds between a kernel-count trace's edges and its replays
 
 
 def check(cond: bool, msg: str) -> None:
@@ -361,14 +377,15 @@ def spills(log: str) -> dict:
 def ptxas_usage(log: str, kernel: str, dim: str = "ILi{}E") -> dict:
     """{d: {registers, spill_stores, spill_loads}} of ``kernel<d>`` from
     ptxas -v (entries mangled as ...kernel followed by ``dim`` with d in
-    it: ...kernelILi<d>E... for a first template argument d)."""
+    it: ...kernelILi<d>E... for a first template argument d; d may also be
+    a type, ``f`` or ``d``, as in ``dim="I{}E"`` for kernel<T>)."""
     import re
 
     out, d = {}, None
     for line in log.splitlines():
-        m = re.search(r"Function properties for \S*" + kernel + dim.format(r"(\d+)"), line)
+        m = re.search(r"Function properties for \S*" + kernel + dim.format(r"(\d+|[fd])"), line)
         if m or "Function properties for" in line:
-            d = int(m.group(1)) if m else None
+            d = (int(m.group(1)) if m.group(1).isdigit() else m.group(1)) if m else None
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and d is not None:
             out.setdefault(d, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
@@ -753,6 +770,7 @@ def layered_main_path(graph, flat_map: float) -> dict:
     impl = embedder.impl
     fused_dense.fused_dense_forces.launches = 0
     span_sweep.span_sweep.launches = 0
+    span_sweep.span_reduce.launches = 0
     for wrapper in build_wrappers().values():
         wrapper.launches = 0
     t0 = time.perf_counter()
@@ -760,7 +778,7 @@ def layered_main_path(graph, flat_map: float) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(fused_dense=fused_dense.fused_dense_forces.launches,
-                    span_sweep=span_sweep.span_sweep.launches,
+                    span_sweep=span_sweep.span_sweep.launches, span_reduce=span_sweep.span_reduce.launches,
                     **{name: w.launches for name, w in build_wrappers().items()})
     records = impl.layer_records
     for r in records:
@@ -779,7 +797,7 @@ def layered_main_path(graph, flat_map: float) -> dict:
     for r in records:
         check(0 < r.iterations < 1000, f"layer n={r.n}: {r.iterations} iterations")
         check(r.final_overflow == 0, f"layer n={r.n}: final overflow {r.final_overflow}")
-    for kernel, path in (("fused_dense", "dense"), ("span_sweep", "span")):
+    for kernel, path in (("fused_dense", "dense"), ("span_sweep", "span"), ("span_reduce", "span")):
         want = sum(r.iterations for r in records if r.path == path)
         check(launches[kernel] == want > 0,
               f"{kernel}: {launches[kernel]} launches for {want} iterations of the {path} layers")
@@ -1080,6 +1098,230 @@ def compare_span(name: str, case: dict, timed: bool) -> dict:
         check(row["prefilter_passes"] >= row["candidates"],
               f"{name}: the prefilter passed {row['prefilter_passes']} pairs for {row['candidates']} candidates")
     return row
+
+
+# ------------------------------------------------------- the sweep's reduction
+def reduce_table(per_block):
+    """A block-major (items, 4) int32 work-item table on the card with
+    ``per_block[b]`` items of block b (the reduction reads the block
+    column only)."""
+    import numpy as np
+    import torch
+
+    per_block = np.asarray(per_block, np.int64)
+    items = np.zeros((int(per_block.sum()), 4), np.int32)
+    items[:, 0] = np.repeat(np.arange(per_block.shape[0]), per_block)
+    return torch.as_tensor(items, device="cuda")
+
+
+def synthetic_scratch(per_block, d: int, seed: int, dtype=None):
+    """(scratch, items): per-item partials (items, d + 3, Q) of ``dtype``
+    (default f32) as a sweep writes them, for ``per_block[b]`` items of
+    block b.  The float channels mix magnitudes from 1e-3 to 1e3 with -0.0
+    (also as the first item of half of each block's slots), +-inf, NaN (a
+    few with payloads) and subnormals; the counts run up to 4 x 256 x 256
+    (int32 bits in the fast layout, values in the general one)."""
+    import numpy as np
+    import torch
+
+    from wembed_tpu_torch.kernels import span_sweep
+
+    dtype = dtype or torch.float32
+    real = np.float64 if dtype == torch.float64 else np.float32
+    bits, nan = (np.uint64, 0x7FF4000000000001) if dtype == torch.float64 else (np.uint32, 0x7FA00001)
+    rng = np.random.default_rng(seed)
+    per_block = np.asarray(per_block, np.int64)
+    n, q = int(per_block.sum()), span_sweep.Q
+    shape = (n, d + 1, q)
+    x = (rng.normal(size=shape) * 10.0 ** rng.integers(-3, 4, size=shape)).astype(real)
+    pick = rng.random(shape)
+    x[pick < 0.02] = -0.0
+    x[(pick >= 0.02) & (pick < 0.022)] = np.inf
+    x[(pick >= 0.022) & (pick < 0.024)] = -np.inf
+    x[(pick >= 0.024) & (pick < 0.026)] = np.nan
+    payload = (pick >= 0.026) & (pick < 0.027)
+    x.view(bits)[payload] = nan  # a signalling NaN with a payload
+    sub = (pick >= 0.03) & (pick < 0.06)
+    x[sub] = (rng.normal(size=int(sub.sum())) * np.finfo(real).tiny / 4).astype(real)
+    first = (np.cumsum(per_block) - per_block)[per_block > 0]
+    x[first, :, : q // 2] = -0.0
+    counts = rng.integers(0, 4 * 256 * 256 + 1, size=(n, 2, q))
+    general = span_sweep._general(dtype, d)
+    counts = counts.astype(real) if general else counts.astype(np.int32).view(np.float32)
+    return torch.as_tensor(np.concatenate([x, counts], axis=1), device="cuda"), reduce_table(per_block)
+
+
+def reduce_blocks(seed: int, blocks: int = 48):
+    """Items a block: 1-23, with empty first, middle and last blocks,
+    one-item blocks and a block of 300 items (more than a CTA's threads)."""
+    import numpy as np
+
+    per = np.random.default_rng(seed).integers(1, 24, size=blocks)
+    per[[0, 5, 6, blocks - 1]] = 0
+    per[[7, 8, 20]] = 1
+    per[30] = 300
+    return per
+
+
+def inside_slice(items) -> tuple[int, int]:
+    """(lo, hi) of a contiguous slice of a block-major table that starts and
+    ends inside blocks, about its middle third (one rank's share)."""
+    block = items[:, 0].cpu().numpy()
+    n = block.shape[0]
+    lo = next(i for i in range(n // 3, n) if 0 < i and block[i - 1] == block[i])
+    hi = next(i for i in range(max(2 * n // 3, lo + 1), n) if block[i - 1] == block[i])
+    return lo, hi
+
+
+def kernel_ms_of(prof, reps: int) -> dict:
+    """{kernel name: device ms a call} of a ``torch.profiler`` trace of
+    ``reps`` calls."""
+    import re
+
+    import torch
+
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"(\w+)(?=[<(])", e.name)  # the name before its template or argument list
+            key = m.group(1) if m else e.name[:60]
+            out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / 1000.0 / reps
+    return out
+
+
+def traced_kernel_ms(fn, reps: int) -> dict:
+    """{kernel name: device ms a call} of the kernels that ``reps`` eager
+    calls of ``fn`` launch, from a ``torch.profiler`` trace (after one
+    untraced call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return kernel_ms_of(prof, reps)
+
+
+def compare_reduce(name: str, scratch, items, nb: int, dim: int, timed: bool = False) -> dict:
+    """The sweep's reduction kernel alone (``span_sweep.span_reduce``) on
+    ``scratch`` against its plain version, bitwise on every output (two
+    launches bitwise equal too).  Timed: the kernel's device ms a call from
+    a trace of calls on this scratch, the plain version's ms, the bytes
+    bound and ``torch.segment_reduce``'s device ms on the same scratch
+    (the library call of the kernels line; it sums the count channels' int
+    bits as floats, so only its time is kept)."""
+    import torch
+
+    from wembed_tpu_torch.kernels import span_sweep
+
+    fields = ("force", "loss", "count", "zero")
+    before = span_sweep.span_reduce.launches
+    out = span_sweep.span_reduce(scratch, items, nb, dim)
+    second = span_sweep.span_reduce(scratch, items, nb, dim)
+    launched = span_sweep.span_reduce.launches - before
+    plain = span_sweep.span_reduce_reference(scratch, items, nb, dim)
+    torch.cuda.synchronize()
+    per_block = torch.bincount(items[:, 0].long(), minlength=nb)[:nb]
+    same = {f: bitwise(a, b) for f, a, b in zip(fields, out, plain)}
+    row = dict(
+        case=name, d=dim, dtype=str(scratch.dtype).split(".")[1],
+        kernel="general" if span_sweep._general(scratch.dtype, dim) else "fast",
+        items=int(items.shape[0]), blocks=nb, empty_blocks=int((per_block == 0).sum()),
+        longest_block=int(per_block.max()) if nb else 0, bitwise=same,
+        twice_bitwise=all(bitwise(a, b) for a, b in zip(out, second)),
+        nan=int(torch.isnan(out[0]).sum() + torch.isnan(out[1]).sum()),
+        negative_zero=int(((out[0] == 0) & torch.signbit(out[0])).sum()),
+        max_abs_err=0.0 if all(same.values()) else max_abs_diff(
+            [torch.nan_to_num(t) for t in out], [torch.nan_to_num(t) for t in plain]),
+    )
+    for f, a, b in zip(fields, out, plain):
+        if not same[f]:  # the first differing words, as hex bits
+            bits = torch.int64 if a.element_size() == 8 else torch.int32
+            ka, kb = a.reshape(-1).view(bits), b.reshape(-1).view(bits)
+            where = torch.nonzero(ka != kb).squeeze(1)[:4].tolist()
+            row.setdefault("differ", {})[f] = [(i, f"{int(ka[i]) & (2**64 - 1):x}", f"{int(kb[i]) & (2**64 - 1):x}")
+                                              for i in where]
+    if timed:
+        lengths = per_block.to(torch.int64)
+        flat = scratch.view(scratch.shape[0], -1)
+        row["kernel_ms"] = sum(traced_kernel_ms(lambda: span_sweep.span_reduce(scratch, items, nb, dim), 50).values())
+        row["library_ms"] = sum(traced_kernel_ms(
+            lambda: torch.segment_reduce(flat, "sum", lengths=lengths, unsafe=True), 50).values())
+        row["plain_ms"] = cuda_ms(lambda: span_sweep.span_reduce_reference(scratch, items, nb, dim), 3)
+        row["bytes"] = nbytes(scratch, *out)  # the scratch read once, the outputs written once
+        row["bound_ms"], row["bound_by"] = bound(0, row["bytes"], f64=scratch.dtype == torch.float64)
+    print("compare_reduce " + json.dumps(row))
+    check(launched == 2, f"{name}: {launched} launches of the reduction kernel for two calls")
+    check(row["twice_bitwise"], f"{name}: two launches differ")
+    check(all(same.values()), f"{name}: the reduction differs from its plain version: {same}")
+    return row
+
+
+def reduce_cases_synthetic() -> list[dict]:
+    """The reduction on synthetic scratches: fast kernel at d = 1 ... 8, the
+    general one at d = 16 (f32) and d = 2 (f64), each whole and over a slice
+    that starts and ends inside blocks; and a table of over 256 x 257 items
+    at d = 1 (three search rounds)."""
+    import torch
+
+    rows = []
+    for d, dtype in [*((d, None) for d in range(1, 9)), (16, None), (2, torch.float64)]:
+        per = reduce_blocks(100 + d)
+        scratch, items = synthetic_scratch(per, d, seed=200 + d, dtype=dtype)
+        label = f"d{d}_{'f64' if dtype else 'f32'}"
+        rows.append(compare_reduce(f"synthetic_{label}", scratch, items, len(per), d))
+        lo, hi = inside_slice(items)
+        rows.append(compare_reduce(f"synthetic_{label}_slice", scratch[lo:hi], items[lo:hi], len(per), d))
+        del scratch, items
+    import numpy as np
+
+    per = np.random.default_rng(7).integers(0, 468, size=300)
+    scratch, items = synthetic_scratch(per, 1, seed=8)
+    check(items.shape[0] > 256 * 257, f"the long table has {items.shape[0]} items")
+    rows.append(compare_reduce(f"synthetic_d1_{items.shape[0]}_items", scratch, items, len(per), 1))
+    del scratch, items
+    for row in rows:
+        check(row["kernel"] == ("general" if row["d"] > 8 or row["dtype"] == "float64" else "fast"),
+              f"{row['case']}: the {row['kernel']} kernel ran")
+    # a fold from +0.0 gives +0.0 for a one-item block of -0.0 (and never -0.0)
+    check(any(r["nan"] for r in rows) and not any(r["negative_zero"] for r in rows),
+          "no synthetic case produced NaN outputs, or one produced -0.0")
+    return rows
+
+
+def reduce_converged(name: str, case: dict, launches: int) -> dict:
+    """The reduction at a converged run's windows (``span_case``): a sweep
+    into a kept scratch (``span_sweep(scratch=)``), whose outputs must be
+    the reduction of that scratch, bitwise; ``compare_reduce`` on it,
+    timed, and on a slice of it that starts and ends inside blocks; the
+    reduction's device ms a call in a trace of sweep-then-reduce pairs (the
+    scratch as the loop leaves it, partly in L2), its bytes bound and share,
+    beside the library call's and the run's launches."""
+    import torch
+
+    from wembed_tpu_torch.kernels import span_sweep
+
+    args, kw = case["args"], case["kw"]
+    items, d, nb = kw["items"], kw["dim"], args[4].shape[0]
+    scratch = torch.empty((items.shape[0], d + 3, span_sweep.Q), dtype=args[0].dtype, device=args[0].device)
+    swept = span_sweep.span_sweep(*args, **kw, scratch=scratch)
+    row = compare_reduce(name, scratch, items, nb, d, timed=True)
+    check(all(bitwise(a, b) for a, b in zip(swept, span_sweep.span_reduce(scratch, items, nb, d))),
+          f"{name}: the sweep's outputs are not the reduction of its scratch")
+    lo, hi = inside_slice(items)
+    compare_reduce(f"{name}_slice", scratch[lo:hi], items[lo:hi], nb, d)
+    del scratch
+    trace = traced_kernel_ms(lambda: span_sweep.span_sweep(*args, **kw), 50)
+    out = dict(case=name, items=row["items"], blocks=nb, longest_block=row["longest_block"],
+               bytes=row["bytes"], bound_ms=row["bound_ms"], bound_by=row["bound_by"], ms=trace["span_reduce_kernel"],
+               sweep_ms=trace["span_sweep_kernel"], share=row["bound_ms"] / trace["span_reduce_kernel"],
+               kernel_ms=row["kernel_ms"], library_ms=row["library_ms"], plain_ms=row["plain_ms"],
+               max_abs_err=row["max_abs_err"], launches=launches, card=card_line())
+    print("reduce_converged " + json.dumps(out))
+    return out
 
 
 def edge_case(impl, index=None, in_index=None, share=None, dtype=None, positions=None, draws=None) -> dict:
@@ -1526,12 +1768,7 @@ def replay_kernel_ms(fn, reps: int) -> dict:
         for _ in range(reps):
             graph.replay()
         torch.cuda.synchronize()
-    out: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            key = e.name.split("<")[0].split("(")[0].split("::")[-1].removeprefix("void ")[:60]
-            out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / 1000.0 / reps
-    return out
+    return kernel_ms_of(prof, reps)
 
 
 def card_line() -> str:
@@ -2162,7 +2399,7 @@ def counters():
     from wembed_tpu_torch.kernels import edge_pass, fused_dense, span_sweep
 
     return dict(fused_dense=fused_dense.fused_dense_forces, span_sweep=span_sweep.span_sweep,
-                edge_pass=edge_pass.edge_pass, **build_wrappers())
+                span_reduce=span_sweep.span_reduce, edge_pass=edge_pass.edge_pass, **build_wrappers())
 
 
 def build_wrappers() -> dict:
@@ -2681,6 +2918,11 @@ def girg100k_d4(generators: dict, reference: dict, tmp: Path) -> dict:
                 st.positions, impl._inv_w, impl._weights, impl._dg.colors, impl._index, impl.opts), timed=True)
             row["build_trace"] = build_trace("girg100k_d4_converged", impl)
             row["launch_account"] = step_launch_account("girg100k_d4_converged", impl)
+            row["reduce"] = reduce_converged("girg100k_d4_converged", span_case(
+                st.positions, impl._inv_w, impl._weights, impl._dg.colors, impl._index, impl.opts),
+                row["launches"]["span_reduce"])
+            check(row["launches"]["span_reduce"] == row["launches"]["span_sweep"],
+                  f"girg100k_d4: {row['launches']} launches")
             del st
         else:
             cell_builds["girg100k_d4_cells_converged"] = compare_cell_build("girg100k_d4_cells_converged", impl)
@@ -2794,26 +3036,44 @@ def schedule_against_host_scalars(steps: int = 1000) -> dict:
 
 
 def kernels_a_replay(impl, steps: int = 5) -> dict:
-    """A ``torch.profiler`` window over ``steps`` replays, after two
-    replays traced and dropped (the first kernels of a window's first
-    replay can run before the tracing does): each hand kernel (and
-    helper) the trace shows, a replay."""
+    """A ``torch.profiler`` window over ``steps`` replays: each hand kernel
+    (and helper) the trace shows, a replay.  The profiler keeps only the
+    kernels whose device times, taken onto the host's clock, fall inside
+    its window, and loses some near its edges (two dense runs counted 211
+    and 206 of 5 x 43).  So the window opens and closes ``EDGE_S`` away
+    from the replays, one replay beyond each end is a margin, and the count
+    takes the kernels between two marker kernels (``torch.cuda._sleep``'s
+    ``spin_kernel``) launched around the ``steps`` replays, in device
+    order."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile
 
     names = ("fused_dense_kernel", "rows_kernel", "finalize_kernel", "span_sweep_kernel",
              "span_reduce_kernel", "segment_pass_kernel", "edge_pass_kernel", "edge_segment_kernel")
+
+    def step():
+        impl._state = impl._step(impl._state)
+        impl._state.pos_change.item()
+
+    step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=2, active=steps, repeat=1)) as prof:
-        for _ in range(steps + 2):
-            impl._state = impl._step(impl._state)
-            impl._state.pos_change.item()
-            prof.step()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(EDGE_S)
+        step()
+        torch.cuda._sleep(1000)
+        for _ in range(steps):
+            step()
+        torch.cuda._sleep(1000)
+        step()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    counts = {name: sum(f"{name}<" in e.name for e in kernels) / steps for name in names}
-    return dict(counts, all_kernels=len(kernels) / steps)
+        time.sleep(EDGE_S)
+    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(kernels) if "spin_kernel" in e.name]
+    check(len(marks) == 2, f"kernels a replay: {len(marks)} marker kernels in the trace, not 2")
+    inside = kernels[marks[0] + 1:marks[1]]
+    counts = {name: sum(f"{name}<" in e.name for e in inside) / steps for name in names}
+    return dict(counts, all_kernels=len(inside) / steps)
 
 
 def step_graph_runs(graph10k, graph100k) -> dict:
@@ -3453,6 +3713,17 @@ def run_phases(kind, generators: dict) -> int:
     check_no_spills("fused_dense", infos["fused_dense"].log, "fused_dense_kernel")
     print("ptxas_span_sweep " + json.dumps(ptxas_usage(infos["span_sweep"].log, "span_sweep_kernel")))
     check_no_spills("span_sweep", infos["span_sweep"].log, "span_sweep_kernel")
+    # the reduction: span_reduce_kernel<D> at D = 1 ... 8 and
+    # span_reduce_general_kernel<T> in f32 and f64, none may spill
+    sweep_log = infos["span_sweep"].log
+    reduce_ptxas = {
+        **{f"span_reduce_kernel<{d}>": v for d, v in ptxas_usage(sweep_log, "span_reduce_kernel").items()},
+        **{f"span_reduce_general_kernel<{t}>": v
+           for t, v in ptxas_usage(sweep_log, "span_reduce_general_kernel", "I{}E").items()},
+    }
+    print("ptxas_span_reduce " + json.dumps(reduce_ptxas))
+    check(len(reduce_ptxas) == 10 and all(v["spill_stores"] == v["spill_loads"] == 0 for v in reduce_ptxas.values()),
+          f"span_sweep: ptxas reports {reduce_ptxas} for the reduction")
     edge_log = infos["edge_pass"].log
     # segment_pass_kernel<T, D, C>, mangled ...segment_pass_kernelI{f,d}Li<D>ELi<C>E...
     print("ptxas_edge_pass " + json.dumps({
@@ -3716,6 +3987,9 @@ def run_phases(kind, generators: dict) -> int:
             8000, d, coincident=True, seed=60 + d, dtype=dtype, spread=0.5), False)
         check(row["kernel"] == "general", f"{row['case']}: the general sweep did not run")
 
+    # ---- phase 9e: the sweep's reduction alone on synthetic scratches
+    reduce_cases_synthetic()
+
     # ---- phase 10: the span main path
     ref_total = reference["att_loss"] + reference["rep_loss"]
     api.setSeed(1)
@@ -3725,6 +3999,7 @@ def run_phases(kind, generators: dict) -> int:
     torch.cuda.reset_peak_memory_stats()
     span_sweep.span_sweep.launches = 0
     span_sweep.span_sweep.launches_general = 0
+    span_sweep.span_reduce.launches = 0
     edge_pass.edge_pass.launches = 0
     edge_pass.edge_pass.launches_general = 0
     for wrapper in build_wrappers().values():
@@ -3734,6 +4009,7 @@ def run_phases(kind, generators: dict) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     span_launches = span_sweep.span_sweep.launches
+    reduce_launches = span_sweep.span_reduce.launches
     edge_launches = edge_pass.edge_pass.launches
     build_launches = {name: w.launches for name, w in build_wrappers().items()}
     state = impl.state
@@ -3747,7 +4023,8 @@ def run_phases(kind, generators: dict) -> int:
     print(
         "main_path_span " + json.dumps(dict(
             graph="girg100k", n=n, m=m, dim=2, seed=1, iterations=iterations,
-            launches=span_launches, launches_general=span_general, edge_pass_launches=edge_launches,
+            launches=span_launches, launches_general=span_general, reduce_launches=reduce_launches,
+            edge_pass_launches=edge_launches,
             build_launches=build_launches, growth_events=impl.growth_events,
             shrink_events=impl._shrink_events, final_work_tiles=impl._index.w,
             final_overflow=overflow, att_loss=loss.attractive, rep_loss=loss.repulsive,
@@ -3759,6 +4036,7 @@ def run_phases(kind, generators: dict) -> int:
     check(0 < iterations < 1000, f"span path did not converge before the cap ({iterations} iterations)")
     check(span_launches == iterations, f"{span_launches} sweep launches for {iterations} iterations")
     check(span_general == 0, f"the span main path launched the general sweep {span_general} times")
+    check(reduce_launches == iterations, f"{reduce_launches} reduction launches for {iterations} iterations")
     check(edge_launches == iterations, f"{edge_launches} edge pass launches for {iterations} iterations")
     check(edge_pass.edge_pass.launches_general == 0, "the span main path ran the edge pass's general variant")
     check(overflow == 0, f"span path ended with overflow {overflow}")
@@ -3780,6 +4058,8 @@ def run_phases(kind, generators: dict) -> int:
         state.positions, impl._inv_w, impl._weights, impl._dg.colors, impl._index, impl.opts), timed=True)
     build_traces = {"girg100k_d2_converged": build_trace("girg100k_d2_converged", impl)}
     step_launch_account("girg100k_d2_converged", impl)
+    reduce_d2 = reduce_converged("girg100k_d2_converged", span_case(
+        state.positions, impl._inv_w, impl._weights, impl._dg.colors, impl._index, impl.opts), reduce_launches)
     del embedder, impl, state
 
     # ---- phase 10c: the same run through the edge pass's plain version
@@ -3940,6 +4220,24 @@ def run_phases(kind, generators: dict) -> int:
             "bound_ms": girg_span["bound_ms"],
             "bound_by": girg_span["bound_by"],
             "library_ms": None,  # no PyTorch call computes the windowed sweep with its tallies
+        },
+        {
+            "name": "span_reduce",
+            "route": "cuda",
+            "source": "wembed_tpu_torch/csrc/span_sweep.cu",
+            # the sum across grid steps of the sweep's Pallas kernel (_init, span_sparse.py:1340)
+            "replaces": "wembed_tpu/kernels/span_sparse.py:1735",
+            "launches": reduce_launches,
+            "launches_layered": layered["launches"]["span_reduce"],
+            "launches_windows_d4": d4["runs"]["windows"]["launches"]["span_reduce"],
+            "girg100k_d4": d4["runs"]["windows"]["reduce"],
+            "max_abs_err": reduce_d2["max_abs_err"],
+            "ms": reduce_d2["ms"],  # device ms a call in a trace of sweep-then-reduce pairs
+            "kernel_ms": reduce_d2["kernel_ms"],
+            "plain_ms": reduce_d2["plain_ms"],
+            "bound_ms": reduce_d2["bound_ms"],
+            "bound_by": reduce_d2["bound_by"],
+            "library_ms": reduce_d2["library_ms"],  # torch.segment_reduce on the same scratch
         },
         {
             "name": "edge_pass",

@@ -120,8 +120,9 @@
 // member's record in registers and the exact pass reads records through
 // L1).  At the end of an item
 // the phases' sums are added in phase order through shared memory and
-// written to a per-item scratch buffer; a second kernel adds each block's
-// items in item order.  No atomics: deterministic.
+// written to a per-item scratch buffer; a second kernel, span_reduce_kernel
+// (below the item kernel), adds each block's items in item order.  No
+// atomics: deterministic.
 //
 // What bounds it on an H100.  The prefilter: 3 NKS mma of 16 x 8 x KK a
 // 128 pairs, i.e. 24 TF32 FLOP a pair at d = 1, 48 at d = 2-5 and 96 at
@@ -144,7 +145,8 @@
 // adds each active pair's coeff * diff into its slot's scratch column in
 // member order.  Counts go through the scratch as T (at most 4 x 256 pairs
 // an item, exact in f32).  span_reduce_general_kernel<T> adds each block's
-// items in item order.
+// items in item order, one thread a slot, after the bounds search of the
+// fast reduction.
 //
 // One rank's share of the replicated multi-device step is a contiguous
 // slice items[lo:hi] of the table: a block with no items in the slice gets
@@ -164,6 +166,8 @@ constexpr int kMaxDevices = 64;          // devices whose shared-memory attribut
 constexpr float kMarginRel = 0x1p-14f;   // EPS of the header's derivation
 constexpr float kMarginAbs = 0x1p-100f;  // TAU
 constexpr float kNormCap = 0x1p110f;     // squared norms at or above it pass unconditionally
+constexpr int kLanes = kQ / 4;           // reduction threads a channel, four slots (16 bytes) each
+constexpr int kUnroll = 8;               // items whose loads a reduction thread issues before it folds
 
 static_assert(kThreads == kQ, "the item epilogue gives each thread one slot");
 static_assert(kThreads == kST, "the tile's prefilter rows are built one thread a member");
@@ -729,35 +733,123 @@ __global__ void __launch_bounds__(kThreads, 2) span_sweep_kernel(Params p) {
   }
 }
 
-// Adds each query block's items in item order (the table is block-major);
-// a block without items gets zeros.  One CTA a block, one thread a slot.
+// ---------------------------------------------------------------- reduction
+//
+// The sum across the TPU kernel's grid steps (its output block is zeroed at
+// a query block's first step and added into at every later one): each query
+// block's work items are added in item order, each float channel from +0.0
+// (acc = 0, then acc = acc + x item by item, so -0.0 and NaN come out as a
+// sequential fold gives them), the counts as integers; a block without items
+// gets zeros.  The work-item table is block-major, so a block's items are
+// one run [lo, end) of it, also in a contiguous slice of it (one rank's
+// share).
+//
+// What bounds it: the bytes, each item's (d + 3, 256) partials read once
+// (27.5 MB at converged girg100k d=2, 65.7 MB at d=4), over the memory
+// rate; the fold itself is a few adds a word.  So the design keeps loads in
+// flight rather than chains of them:
+// - block_bounds finds [lo, end) in a few parallel rounds: every thread
+//   probes one entry of the bracket, evenly spaced, and a block-wide count
+//   of the probes below the key narrows it to one stride (two rounds up to
+//   T (T + 1) items, T = the CTA's threads);
+// - a thread takes four slots (16 bytes) of one channel, 64 threads a
+//   channel and (d + 3) 64 threads a CTA, and issues kUnroll items' loads
+//   at independent addresses before it folds them in item order;
+// - the force rows go out through shared memory as contiguous 16-byte
+//   stores, the loss and counts straight from their channel's threads.
+
+// [lo, end) of query block `blk`'s items in `items` (n entries sorted by
+// .x), as (lo, end).  Every thread of the CTA calls it and gets the same
+// answer.  Each search keeps the unknown bracket [a, b) of its lower bound
+// (the entries below a are known below the key, those from b on not): its
+// T probes a, a + s, ... (s = ceil((b - a) / T)) are counted across the CTA,
+// and the count c leaves [a + (c - 1) s + 1, a + c s).
+__device__ __forceinline__ int2 block_bounds(const int4* items, int n, int blk) {
+  const int* key = reinterpret_cast<const int*>(items);  // .x of entry i at key[4 i]
+  const int t = threadIdx.x, T = blockDim.x;
+  int a0 = 0, b0 = n;  // first entry >= blk
+  int a1 = 0, b1 = n;  // first entry > blk
+  while (a0 < b0 || a1 < b1) {
+    const int s0 = (b0 - a0 + T - 1) / T, s1 = (b1 - a1 + T - 1) / T;
+    const int p0 = a0 + t * s0, p1 = a1 + t * s1;
+    const bool in0 = p0 < b0, in1 = p1 < b1;
+    const int x0 = in0 ? __ldg(key + 4 * (size_t)p0) : 0;  // both loads in flight at once
+    const int x1 = in1 ? __ldg(key + 4 * (size_t)p1) : 0;
+    const int c0 = __syncthreads_count(in0 && x0 < blk);
+    const int c1 = __syncthreads_count(in1 && x1 <= blk);
+    if (a0 < b0) {
+      b0 = min(b0, a0 + c0 * s0);
+      a0 = c0 > 0 ? a0 + (c0 - 1) * s0 + 1 : a0;
+    }
+    if (a1 < b1) {
+      b1 = min(b1, a1 + c1 * s1);
+      a1 = c1 > 0 ? a1 + (c1 - 1) * s1 + 1 : a1;
+    }
+  }
+  return make_int2(a0, a1);
+}
+
+// One CTA a query block, (D + 3) x kLanes threads: channel c = tid / kLanes
+// (whole warps), slots 4 v ... 4 v + 3 with v = tid % kLanes.
 template <int D>
-__global__ void __launch_bounds__(kQ) span_reduce_kernel(Params p) {
+__global__ void __launch_bounds__(kLanes * (D + 3)) span_reduce_kernel(Params p) {
   constexpr int C = D + 3;
+  __shared__ __align__(16) float rows[kQ * D];  // the block's force rows, row-major
   const int blk = blockIdx.x;
-  const int slot = threadIdx.x;
-  int lo = 0, hi = p.n_items;  // first item of this block
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (p.items[mid].x < blk) lo = mid + 1; else hi = mid;
+  const int c = threadIdx.x / kLanes;
+  const int v = threadIdx.x % kLanes;
+  const int2 range = block_bounds(p.items, p.n_items, blk);
+  const float4* src = reinterpret_cast<const float4*>(p.scratch) + c * kLanes + v;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int4 cnt = make_int4(0, 0, 0, 0);
+  for (int it = range.x; it < range.y; it += kUnroll) {
+    float4 x[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (it + u < range.y) x[u] = __ldcs(src + (size_t)(it + u) * C * kLanes);
+    }
+    if (c <= D) {  // force and loss: f32, in item order
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (it + u < range.y) {
+          acc.x = acc.x + x[u].x;
+          acc.y = acc.y + x[u].y;
+          acc.z = acc.z + x[u].z;
+          acc.w = acc.w + x[u].w;
+        }
+      }
+    } else {  // the counts: int32 bits
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (it + u < range.y) {
+          cnt.x += __float_as_int(x[u].x);
+          cnt.y += __float_as_int(x[u].y);
+          cnt.z += __float_as_int(x[u].z);
+          cnt.w += __float_as_int(x[u].w);
+        }
+      }
+    }
   }
-  float acc[D + 1];
-#pragma unroll
-  for (int c = 0; c <= D; ++c) acc[c] = 0.0f;
-  int cnt = 0, zc = 0;
-  for (int it = lo; it < p.n_items && p.items[it].x == blk; ++it) {
-    const float* src = p.scratch + (size_t)it * C * kQ + slot;
-#pragma unroll
-    for (int c = 0; c <= D; ++c) acc[c] = acc[c] + src[c * kQ];
-    cnt += __float_as_int(src[(D + 1) * kQ]);
-    zc += __float_as_int(src[(D + 2) * kQ]);
+  const size_t s = (size_t)blk * kQ + 4 * v;
+  if (c < D) {
+    rows[(4 * v) * D + c] = acc.x;
+    rows[(4 * v + 1) * D + c] = acc.y;
+    rows[(4 * v + 2) * D + c] = acc.z;
+    rows[(4 * v + 3) * D + c] = acc.w;
+  } else if (c == D) {
+    *reinterpret_cast<float4*>(p.loss + s) = acc;
+  } else {
+    *reinterpret_cast<int4*>((c == D + 1 ? p.count : p.zero) + s) = cnt;
   }
-  const size_t s = (size_t)blk * kQ + slot;
-#pragma unroll
-  for (int k = 0; k < D; ++k) p.force[s * D + k] = acc[k];
-  p.loss[s] = acc[D];
-  p.count[s] = cnt;
-  p.zero[s] = zc;
+  __syncthreads();
+  float4* out = reinterpret_cast<float4*>(p.force + (size_t)blk * kQ * D);
+  for (int i = threadIdx.x; i < kQ * D / 4; i += blockDim.x) out[i] = reinterpret_cast<const float4*>(rows)[i];
+}
+
+template <int D>
+cudaError_t launch_reduce(const Params& p, int nb, cudaStream_t stream) {
+  span_reduce_kernel<D><<<nb, kLanes * (D + 3), 0, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -776,8 +868,7 @@ cudaError_t launch(const Params& p, int nb, int device, cudaStream_t stream) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  span_reduce_kernel<D><<<nb, kQ, 0, stream>>>(p);
-  return cudaGetLastError();
+  return launch_reduce<D>(p, nb, stream);
 }
 
 // ---------------------------------------------------------------- general
@@ -808,6 +899,19 @@ struct GeneralParams {
 
 __device__ __forceinline__ float ieee_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double ieee_sqrt(double x) { return sqrt(x); }
+
+// acc + x of the general reduction's fold.  f32 arithmetic returns one
+// canonical NaN; add.f64 returns an input NaN's payload, and of two NaN
+// inputs the one its operand order prefers, which the compiler may swap
+// between copies of an unrolled loop.  So in f64 the fold states its NaN:
+// x's (quieted) where x is NaN, else acc's, as the plain version does.
+__device__ __forceinline__ float fold_add(float acc, float x) { return acc + x; }
+__device__ __forceinline__ double fold_add(double acc, double x) {
+  constexpr long long kQuiet = 1ll << 51;
+  if (isnan(x)) return __longlong_as_double(__double_as_longlong(x) | kQuiet);
+  if (isnan(acc)) return __longlong_as_double(__double_as_longlong(acc) | kQuiet);
+  return acc + x;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) span_sweep_general_kernel(GeneralParams<T> p) {
@@ -867,17 +971,12 @@ __global__ void __launch_bounds__(kQ) span_reduce_general_kernel(GeneralParams<T
   const int slot = threadIdx.x;
   const int d = p.d;
   const int C = d + 3;
-  int lo = 0, hi = p.n_items;
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (p.items[mid].x < blk) lo = mid + 1; else hi = mid;
-  }
-  int end = lo;
-  while (end < p.n_items && p.items[end].x == blk) ++end;
+  const int2 range = block_bounds(p.items, p.n_items, blk);
+  const int lo = range.x, end = range.y;
   const size_t s = (size_t)blk * kQ + slot;
   for (int c = 0; c <= d; ++c) {
     T acc = T(0);
-    for (int it = lo; it < end; ++it) acc = acc + p.scratch[((size_t)it * C + c) * kQ + slot];
+    for (int it = lo; it < end; ++it) acc = fold_add(acc, p.scratch[((size_t)it * C + c) * kQ + slot]);
     if (c < d) p.force[s * d + c] = acc; else p.loss[s] = acc;
   }
   int cnt = 0, zc = 0;
@@ -890,14 +989,34 @@ __global__ void __launch_bounds__(kQ) span_reduce_general_kernel(GeneralParams<T
 }
 
 template <typename T>
+cudaError_t launch_reduce_general(const GeneralParams<T>& p, int nb, cudaStream_t stream) {
+  span_reduce_general_kernel<T><<<nb, kQ, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t launch_general(const GeneralParams<T>& p, int nb, cudaStream_t stream) {
   if (p.n_items > 0) {
     span_sweep_general_kernel<T><<<p.n_items, kThreads, 0, stream>>>(p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  span_reduce_general_kernel<T><<<nb, kQ, 0, stream>>>(p);
-  return cudaGetLastError();
+  return launch_reduce_general<T>(p, nb, stream);
+}
+
+template <typename T>
+cudaError_t reduce_general(const int* items, int n_items, int nb, int dim, const void* scratch, void* force,
+                           void* loss, int* count, int* zero, cudaStream_t stream) {
+  GeneralParams<T> p = {};
+  p.items = reinterpret_cast<const int4*>(items);
+  p.n_items = n_items;
+  p.d = dim;
+  p.scratch = static_cast<T*>(const_cast<void*>(scratch));
+  p.force = static_cast<T*>(force);
+  p.loss = static_cast<T*>(loss);
+  p.count = count;
+  p.zero = zero;
+  return launch_reduce_general<T>(p, nb, stream);
 }
 
 template <typename T>
@@ -1013,6 +1132,46 @@ int wembed_span_sweep_general(const void* qrec, const int* qcol, const void* sre
   } else {
     err = general<float>(qrec, qcol, srec, scol, blk_t, start_tile, tile_off, items, n_items,
                          nb, R, dim, L, rep_scale, additive, scratch, force, loss, count, zero, s);
+  }
+  return static_cast<int>(err);
+}
+
+// Enqueues the reduction alone on `stream`: each of the nb query blocks'
+// items of `items` (n_items entries, block-major) added in item order from
+// `scratch`, (n_items, dim + 3, 256) values in the layout the sweep writes
+// (the counts as int32 bits in the fast layout, f32 at dim <= 8; as values
+// in the general one, f64 or a larger dim), into force (nb * 256, dim),
+// loss, count and zero.  The kernel the sweep would launch after its items:
+// span_reduce_kernel<dim>, or span_reduce_general_kernel<T>.
+int wembed_span_reduce(const void* scratch, const int* items, int n_items, int nb, int dim, int f64,
+                       void* force, void* loss, int* count, int* zero, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (nb < 1 || n_items < 0 || dim < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f64) {
+    err = reduce_general<double>(items, n_items, nb, dim, scratch, force, loss, count, zero, s);
+  } else if (dim > kMaxDim) {
+    err = reduce_general<float>(items, n_items, nb, dim, scratch, force, loss, count, zero, s);
+  } else {
+    Params p = {};
+    p.items = reinterpret_cast<const int4*>(items);
+    p.n_items = n_items;
+    p.scratch = static_cast<float*>(const_cast<void*>(scratch));
+    p.force = static_cast<float*>(force);
+    p.loss = static_cast<float*>(loss);
+    p.count = count;
+    p.zero = zero;
+    switch (dim) {
+      case 1: err = launch_reduce<1>(p, nb, s); break;
+      case 2: err = launch_reduce<2>(p, nb, s); break;
+      case 3: err = launch_reduce<3>(p, nb, s); break;
+      case 4: err = launch_reduce<4>(p, nb, s); break;
+      case 5: err = launch_reduce<5>(p, nb, s); break;
+      case 6: err = launch_reduce<6>(p, nb, s); break;
+      case 7: err = launch_reduce<7>(p, nb, s); break;
+      case 8: err = launch_reduce<8>(p, nb, s); break;
+    }
   }
   return static_cast<int>(err);
 }

@@ -31,6 +31,7 @@ _COUNTERS = (
     (fused_dense_forces, "launches_general"),
     (_span_sweep.span_sweep, "launches"),
     (_span_sweep.span_sweep, "launches_general"),
+    (_span_sweep.span_reduce, "launches"),
     (_edge_pass.edge_pass, "launches"),
     (_edge_pass.edge_pass, "launches_general"),
     (_span_build.principal_frame, "launches"),

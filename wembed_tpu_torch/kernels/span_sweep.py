@@ -27,7 +27,11 @@ Work items: ``work_items`` cuts every block's tiles, in block-major order,
 into items of at most ``WORK_ITEM_TILES`` tiles, ``(block, first row g,
 tiles to skip in row g's window, tiles)``.  The table depends only on
 ``blk_t``, so it is built on the host once per window change.  The kernel
-runs one CTA an item and adds each block's items in item order.
+runs one CTA an item, each writing its partial sums into a scratch of
+``(items, d + 3, Q)`` values, and a second kernel adds each block's items
+in item order: ``span_reduce`` launches that reduction alone on a given
+scratch, ``span_reduce_reference`` is its plain version, and
+``span_sweep(scratch=)`` keeps a sweep's scratch for it.
 
 ``span_sweep`` launches ``csrc/span_sweep.cu`` for CUDA tensors, the fast
 kernel for f32 at d <= 8 and the general one for f64 or a larger d
@@ -56,6 +60,7 @@ from . import _build
 Q = 256  # query slots per block
 ST = 256  # members per tile
 WORK_ITEM_TILES = 4  # K: tiles of the longest work item (chosen on an H100, PERF.md)
+MAX_DIM = 8  # the fast kernels' largest d in f32 (csrc/span_sweep.cu kMaxDim)
 _REFERENCE_PAIRS = 1 << 22  # (tile, slot, member) elements per chunk of the plain version
 # the fast kernel's prefilter (csrc/span_sweep.cu: kMarginRel, kMarginAbs, kNormCap)
 PREFILTER_MARGIN_REL = 2.0**-14
@@ -128,13 +133,15 @@ def span_sweep_reference(
     rep_scale: float,
     additive: bool,
     items: torch.Tensor | None = None,  # (items, 4) int32 work items of blk_t
+    scratch: torch.Tensor | None = None,  # (items, d + 3, Q): filled with the items' partials
 ):
     """Plain PyTorch version of the kernel, vectorised over chunks of work
     tiles.  Same outputs as ``span_sweep``: (force (nb*Q, d), loss (nb*Q,),
     count (nb*Q,) int32, zero (nb*Q,) int32).  With ``items`` it runs the
-    kernel's split: each item's tiles summed on their own, then each
-    block's items added in item order; without, each block's tiles at
-    once."""
+    kernel's split: each item's tiles summed on their own into the kernel's
+    scratch layout (``scratch`` when given), then each block's items added
+    in item order by ``span_reduce_reference``; without, each block's tiles
+    at once."""
     d = dim
     nq, c = qrec.shape
     nb = nq // Q
@@ -175,17 +182,89 @@ def span_sweep_reference(
         count.index_add_(0, to, torch.sum(valid, dim=2))
         zero.index_add_(0, to, torch.sum(valid & ~posd, dim=2))
     if items is not None:  # each block's items, in item order
-        block = items[:, 0].to(torch.int64)
-        sums = (force, loss, count, zero)
-        force, loss, count, zero = (
-            torch.zeros((nb, *t.shape[1:]), dtype=t.dtype, device=device).index_add_(0, block, t)
-            for t in sums
-        )
+        packed = _pack_scratch(force, loss, count, zero, d)
+        if scratch is not None:
+            scratch.copy_(packed)
+        return span_reduce_reference(packed, items, nb, d)
     return (
         force.reshape(nq, d),
         loss.reshape(nq),
         count.reshape(nq).to(torch.int32),
         zero.reshape(nq).to(torch.int32),
+    )
+
+
+def _general(dtype: torch.dtype, dim: int) -> bool:
+    """Whether the general kernels take records of ``dtype`` at ``dim``
+    (f64, or f32 beyond the fast kernels' ``MAX_DIM``)."""
+    return dtype == torch.float64 or dim > MAX_DIM
+
+
+def _pack_scratch(force, loss, count, zero, dim: int) -> torch.Tensor:
+    """Per-item partials, force (items, Q, d), loss (items, Q), count and
+    zero (items, Q), in the kernels' scratch layout (items, d + 3, Q): the
+    counts as int32 bits in the fast layout, as values in the general
+    one."""
+    general = _general(force.dtype, dim)
+
+    def tally(t):
+        return t.to(force.dtype) if general else t.to(torch.int32).view(force.dtype)
+
+    return torch.cat([force.transpose(1, 2), loss[:, None], tally(count)[:, None], tally(zero)[:, None]], dim=1)
+
+
+def _fold_add(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """acc + x, with the f64 NaN of the general kernel's fold: x's
+    (quieted) where x is NaN, else acc's."""
+    total = acc + x
+    if acc.dtype != torch.float64:
+        return total
+    quiet = 1 << 51  # the quiet bit of an f64 NaN
+
+    def quieted(t):
+        return (t.view(torch.int64) | quiet).view(torch.float64)
+
+    total = torch.where(torch.isnan(acc), quieted(acc), total)
+    return torch.where(torch.isnan(x), quieted(x), total)
+
+
+def span_reduce_reference(scratch: torch.Tensor, items: torch.Tensor, nb: int, dim: int):
+    """Plain version of the sweep's reduction: (force (nb*Q, d), loss
+    (nb*Q,), count (nb*Q,) int32, zero (nb*Q,) int32) of ``nb`` query
+    blocks from the per-item partials ``scratch`` (items, d + 3, Q), each
+    block's items of the block-major table ``items`` (or a contiguous slice
+    of it) added in item order: each float channel folded from +0.0 (acc =
+    0, then acc = acc + x item by item), the counts (int32 bits in the fast
+    layout, values in the general one) as int32 sums; a block without items
+    gets zeros.  Vectorised over blocks by an item's rank within its block,
+    one rank at a time, with no two items of a rank in one block.
+
+    A NaN sum in f64 is the item's NaN, quieted, where the item is one, else
+    the running sum's, as the general kernel's fold states it (add.f64
+    keeps an input NaN's payload, and which of two NaN operands it keeps
+    depends on the operand order, which neither the compiler nor torch's
+    CUDA add fixes).  In f32 the card returns one canonical NaN, as
+    torch's add does there."""
+    d = dim
+    nq, dtype, device = nb * Q, scratch.dtype, scratch.device
+    floats = scratch[:, : d + 1]
+    tallies = scratch[:, d + 1 :]
+    tallies = tallies.to(torch.int32) if _general(dtype, d) else tallies.view(torch.int32)
+    block = items[:, 0].to(torch.int64)
+    per_block = torch.bincount(block, minlength=nb)[:nb]
+    first = torch.cumsum(per_block, 0) - per_block
+    acc = torch.zeros((nb, d + 1, Q), dtype=dtype, device=device)
+    counts = torch.zeros((nb, 2, Q), dtype=torch.int32, device=device)
+    for rank in range(int(per_block.max()) if items.shape[0] else 0):
+        live = torch.nonzero(per_block > rank).squeeze(1)
+        item = first[live] + rank
+        acc[live] = _fold_add(acc[live], floats[item])
+        counts[live] = counts[live] + tallies[item]
+    return (
+        acc[:, :d].transpose(1, 2).reshape(nq, d),
+        acc[:, d].reshape(nq),
+        counts[:, 0].reshape(nq),
+        counts[:, 1].reshape(nq),
     )
 
 
@@ -270,6 +349,8 @@ def _configure(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, p, p, p, i, i, i, i, i, d, d, i, p, p, p, p, p, i, p,
     ]
     lib.wembed_span_sweep_general.restype = i
+    lib.wembed_span_reduce.argtypes = [p, p, i, i, i, i, p, p, p, p, i, p]
+    lib.wembed_span_reduce.restype = i
     lib.wembed_span_sweep_count_passes.argtypes = [i, i]
     lib.wembed_span_sweep_count_passes.restype = i
     lib.wembed_span_sweep_passes.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), i]
@@ -311,6 +392,31 @@ def _check(qrec, qcol, srec, scol, blk_t, start_tile, tile_off, items, dim):
         raise ValueError("the CUDA kernel reads items as int4: its data must be 16-byte aligned")
 
 
+def _check_scratch(scratch, items, dtype, dim, device) -> None:
+    """A scratch the kernels take: (items, dim + 3, Q) of ``dtype`` on
+    ``device``, contiguous and 16-byte aligned (read as 16-byte vectors)."""
+    shape = (items.shape[0], dim + 3, Q)
+    if scratch.device != device or scratch.dtype != dtype or tuple(scratch.shape) != shape:
+        raise ValueError(f"the scratch must be {shape} {dtype} on {device}, got "
+                         f"{tuple(scratch.shape)} {scratch.dtype} on {scratch.device}")
+    if not scratch.is_contiguous() or scratch.data_ptr() % 16 != 0:
+        raise ValueError("the scratch must be contiguous and 16-byte aligned")
+
+
+def _library():
+    lib = _build.load("span_sweep", _configure)
+    if (lib.wembed_span_sweep_block(), lib.wembed_span_sweep_tile(), lib.wembed_span_sweep_max_dim()) != (
+            Q, ST, MAX_DIM):
+        raise RuntimeError("csrc/span_sweep.cu and kernels/span_sweep.py disagree on Q, ST or MAX_DIM")
+    return lib
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.wembed_span_sweep_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} (cudaError {rc})")
+
+
 def span_sweep(
     qrec: torch.Tensor,
     qcol: torch.Tensor,
@@ -325,6 +431,7 @@ def span_sweep(
     rep_scale: float,
     additive: bool,
     items: torch.Tensor | None = None,
+    scratch: torch.Tensor | None = None,
 ):
     """The sweep of one step.  Returns (force (nb*Q, d), loss (nb*Q,), count
     (nb*Q,) int32, zero (nb*Q,) int32) per query slot.  CPU tensors go
@@ -332,38 +439,39 @@ def span_sweep(
     kernel, on the current stream, without synchronising, which needs
     ``items``, the ``work_items`` table of these ``blk_t`` on the device,
     or a contiguous slice of it.  The caller keeps the windows inside each
-    row (start_tile + blk_t <= the row's tiles)."""
+    row (start_tile + blk_t <= the row's tiles).  ``scratch``, a caller's
+    (items, d + 3, Q) buffer, keeps the items' partial sums for
+    ``span_reduce``; by default the sweep allocates its own."""
     kwargs = dict(dim=dim, L=L, rep_scale=rep_scale, additive=additive, items=items)
     args = (qrec, qcol, srec, scol, blk_t, start_tile, tile_off)
     if qrec.device.type == "cpu":
-        return span_sweep_reference(*args, **kwargs)
+        return span_sweep_reference(*args, **kwargs, scratch=scratch)
     if qrec.device.type != "cuda":
         raise ValueError(f"no span_sweep kernel for device {qrec.device}")
     _check(*args, items, dim)
-    lib = _build.load("span_sweep", _configure)
-    if (lib.wembed_span_sweep_block(), lib.wembed_span_sweep_tile()) != (Q, ST):
-        raise RuntimeError("csrc/span_sweep.cu and kernels/span_sweep.py disagree on Q or ST")
+    lib = _library()
     nq, dtype, device = qrec.shape[0], qrec.dtype, qrec.device
     nb, rr = blk_t.shape
     n_items = items.shape[0]
-    scratch = torch.empty((n_items, dim + 3, Q), dtype=dtype, device=device)
+    if scratch is None:
+        scratch = torch.empty((n_items, dim + 3, Q), dtype=dtype, device=device)
+    _check_scratch(scratch, items, dtype, dim, device)
     force, loss, count, zero = sweep_outputs(nq, dim, dtype, device)
     inputs = (*(t.data_ptr() for t in args), items.data_ptr(), n_items, nb, rr, dim)
     outputs = (scratch.data_ptr(), force.data_ptr(), loss.data_ptr(), count.data_ptr(),
                zero.data_ptr(), device.index, torch.cuda.current_stream(device).cuda_stream)
     scalars = (float(L), float(rep_scale), int(bool(additive)))
-    general = dtype == torch.float64 or dim > lib.wembed_span_sweep_max_dim()
+    general = _general(dtype, dim)
     if general:
         rc = lib.wembed_span_sweep_general(
             *inputs, int(dtype == torch.float64), *scalars, *outputs
         )
     else:
         rc = lib.wembed_span_sweep(*inputs, *scalars, *outputs)
-    if rc != 0:
-        msg = lib.wembed_span_sweep_error_string(rc).decode()
-        raise RuntimeError(f"span_sweep kernel launch failed: {msg} (cudaError {rc})")
+    _raise_on(lib, rc, "span_sweep")
     span_sweep.launches += 1
     span_sweep.launches_general += int(general)
+    span_reduce.launches += 1  # the call's second kernel
     return force, loss, count, zero
 
 
@@ -371,12 +479,46 @@ span_sweep.launches = 0  # kernel launches, both kernels; the plain version is n
 span_sweep.launches_general = 0  # of which the general kernel's
 
 
+def span_reduce(scratch: torch.Tensor, items: torch.Tensor, nb: int, dim: int):
+    """The sweep's reduction alone: each of the ``nb`` query blocks' items
+    of ``items`` (block-major, or a contiguous slice of such a table) added
+    in item order from the per-item partials ``scratch`` (items, d + 3, Q),
+    as a sweep writes them.  Returns what ``span_sweep`` returns.  CPU
+    tensors go through ``span_reduce_reference``; CUDA tensors through the
+    kernel a sweep launches after its items (f32 at d <= MAX_DIM, else the
+    general one), on the current stream, without synchronising."""
+    if scratch.device.type == "cpu":
+        return span_reduce_reference(scratch, items, nb, dim)
+    if scratch.device.type != "cuda":
+        raise ValueError(f"no span_reduce kernel for device {scratch.device}")
+    dtype, device = scratch.dtype, scratch.device
+    if dtype not in (torch.float32, torch.float64) or nb < 1:
+        raise ValueError(f"the CUDA kernel takes an f32 or f64 scratch and nb >= 1, got {dtype}, nb={nb}")
+    if (items.device != device or items.dtype != torch.int32 or items.dim() != 2 or items.shape[1] != 4
+            or not items.is_contiguous() or items.data_ptr() % 16 != 0):
+        raise ValueError("items must be a contiguous, 16-byte aligned (items, 4) int32 table on the scratch's device")
+    _check_scratch(scratch, items, dtype, dim, device)
+    lib = _library()
+    force, loss, count, zero = sweep_outputs(nb * Q, dim, dtype, device)
+    rc = lib.wembed_span_reduce(
+        scratch.data_ptr(), items.data_ptr(), items.shape[0], nb, dim, int(dtype == torch.float64),
+        force.data_ptr(), loss.data_ptr(), count.data_ptr(), zero.data_ptr(), device.index,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _raise_on(lib, rc, "span_reduce")
+    span_reduce.launches += 1
+    return force, loss, count, zero
+
+
+span_reduce.launches = 0  # reduction kernel launches: this wrapper's and every sweep call's
+
+
 def _counter_call(fn, device: torch.device, *args) -> None:
     """Calls the library's pass-counter function ``fn`` for the CUDA
     ``device`` after the device's queued work; raises on a CUDA error."""
     torch.cuda.synchronize(device)
     index = device.index if device.index is not None else torch.cuda.current_device()
-    lib = _build.load("span_sweep", _configure)
+    lib = _library()
     rc = getattr(lib, fn)(*args, index)
     if rc != 0:
         msg = lib.wembed_span_sweep_error_string(rc).decode()
