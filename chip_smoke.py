@@ -17,7 +17,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      ``ptxas_span_build`` lines: the fast kernels' registers and spills at
      each d), and fail on any spill of the dense and sweep fast kernels in
      f32 at d <= 4 and on any in the sweep's reduction, the edge pass and
-     the structures build (every instantiation, f32 and f64);
+     the structures build (every instantiation, f32 and f64), and in the
+     general dense and sweep kernels (a ``ptxas_general`` line: their
+     seven instantiations);
   3. hold the fused force kernel against its plain PyTorch version on the
      card: girg10k d=2 with degree weights at positions after 20 steps of
      a seeded run (timed), n = 16384, the largest dense size (timed),
@@ -172,18 +174,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      with a checkpoint between, bitwise equal to 120 straight steps.
 
 And the general kernels, the partial index and the replicated backend:
-  3b. the general dense kernel (f32 at d = 16 and 33, f64 at d = 2 and 16)
-      against its plain version on synthetic cases and girg10k positions
-      (timed at d=16 f32 and d=2 f64; the d=16 positions after 20 steps
-      crowded about their centroid until pairs repel), every case with
-      candidate pairs, and the row range [3000, 7000) of girg10k bitwise
-      the whole launch's rows (fast kernel and f64);
+  3b. the general dense kernel (f32 at d = 9, 12, 16, 24, 32, 33 and 64,
+      f64 at d = 1, 2, 8 and 16 on n = 3,000; coincident points at d = 16
+      and 33 and in f64 at d = 2 and 16; d = 300 on n = 400) against its
+      plain version on synthetic cases and girg10k positions (timed at
+      d=16 f32 and d=2 f64, with the kernel's own device ms from a trace;
+      the d=16 positions after 20 steps crowded about their centroid until
+      pairs repel), every case with candidate pairs and every force and
+      coincident count bitwise the column-order fold (``dense_fold``, the
+      general kernel's arithmetic in plain torch), and the row range
+      [3000, 7000) of girg10k bitwise the whole launch's rows (fast kernel
+      and f64);
   7b. girg10k at d=16 to convergence (the general dense kernel), 20 steps
       of girg10k on the span path at d=16 (the general sweep, then timed
       at its positions crowded as in 3b), girg10k in f64 to convergence
       within the loss and MAP limits, f64 on the card against the CPU (3
       steps, n = 3,200, dense and span, rtol 1e-9);
-  9b. the general sweep at the same (d, dtype) pairs on synthetic cases;
+  9b. the general sweep at the (d, dtype) pairs of 3b on n = 8,000
+      synthetic cases and at d = 300 on n = 2,000 (narrower clouds at
+      d = 64 and 300, so that pairs repel), each item's partials bitwise
+      the member-order fold (``sweep_fold``) and the outputs its reduction;
+  13c. girg100k at d=16 through ``api.createEmbedder`` to convergence (the
+      span path through the general sweep and reduction, the edge pass's
+      general variant and the frame's general route): finite state, final
+      overflow 0, below 1000 iterations, one general sweep launch a step;
+      MAP, a profile of 20 steps (device ms a step, its top kernels), and
+      the sweep at the converged positions against its plain version
+      (timed, bitwise the fold);
   14. girg100k in f64 (the sweep timed at iteration 20, then to
       convergence within the limits), with ``index_size=0.5`` (exact
       sample sizes every step, overflow 0, MAP printed, bitwise resume);
@@ -265,6 +282,9 @@ FORCE_ATOL = 1e-5  # times max|force|
 LOSS_RTOL = 1e-5
 F64_RTOL = 1e-12  # the same in f64: forces (rtol and atol x max|force|) and losses
 COMPARE_STEPS = 20
+GENERAL_CASES = tuple((d, None) for d in (9, 12, 16, 24, 32, 33, 64)) + tuple(
+    (d, "float64") for d in (1, 2, 8, 16))  # (d, dtype) of the general kernels' synthetic cases
+GENERAL_SPAN_SPREAD = {64: 0.4, 300: 0.15}  # narrower clouds at these d, so that pairs repel
 F32_FLOPS = 67e12  # H100 SXM FP32 peak outside the tensor cores (data sheet)
 F64_FLOPS = 34e12  # H100 SXM FP64 peak outside the tensor cores (data sheet)
 HBM_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
@@ -574,6 +594,9 @@ def compare(name: str, case: dict, timed: bool) -> dict:
         max_abs_force=scale, max_abs_err=err,
         splits=None if general else fused_dense._split_cache.get((n, d, case["pos"].device.index)),
     )
+    if general:  # the column-order fold, bitwise
+        f_f, z_f = dense_fold(*args, **kw)
+        row["bitwise_fold"] = bitwise(f_k, f_f) and bitwise(z_k, z_f)
     if timed:
         row["ms"] = cuda_ms(lambda: fused_dense.fused_dense_forces(*args, **kw), 50)
         row["plain_ms"] = cuda_ms(lambda: fused_dense.fused_dense_forces_reference(*args, **kw), 5)
@@ -582,7 +605,13 @@ def compare(name: str, case: dict, timed: bool) -> dict:
         row["bound_ms"], row["bound_by"] = bound(
             flop, nbytes(*args, f_k, z_k) + 16, f64=dtype == torch.float64
         )
+        if general:  # the kernel's own device time, without the wrapper's host work
+            row["kernel_ms"] = traced_call_ms(
+                lambda: fused_dense.fused_dense_forces(*args, **kw), "fused_dense_general_kernel", 20)
+            row["share"] = row["bound_ms"] / row["kernel_ms"]
     print("compare " + json.dumps(row))
+    if general:
+        check(row["bitwise_fold"], f"{name}: the general kernel is not the column-order fold")
     check(int(c_k) == int(c_p), f"{name}: rep count {int(c_k)} != {int(c_p)}")
     check(bool(torch.equal(z_k, z_p)), f"{name}: zero counts differ")
     check(ok_force, f"{name}: forces differ by up to {err} (max|force| {scale})")
@@ -1056,7 +1085,8 @@ def compare_span(name: str, case: dict, timed: bool) -> dict:
     args, kw = case["args"], case["kw"]
     dtype = args[0].dtype
     general = span_sweep.span_sweep.launches_general
-    out = span_sweep.span_sweep(*args, **kw)
+    scratch = torch.empty((kw["items"].shape[0], kw["dim"] + 3, span_sweep.Q), dtype=dtype, device=args[0].device)
+    out = span_sweep.span_sweep(*args, **kw, scratch=scratch)
     general = span_sweep.span_sweep.launches_general - general
     f_k, l_k, c_k, z_k = out
     torch.cuda.synchronize()
@@ -1072,6 +1102,12 @@ def compare_span(name: str, case: dict, timed: bool) -> dict:
         rep_count=[int(c_k.sum()), int(c_p.sum())], zero_sum=[int(z_k.sum()), int(z_p.sum())],
         rep_loss=[loss_k, loss_p], max_abs_force=scale, max_abs_err=err,
     )
+    if general:  # each slot's member-order fold, bitwise, and the reduction of it
+        folded = sweep_fold(*args, **kw)
+        row["bitwise_fold"] = bitwise(scratch, folded) and all(
+            bitwise(a, b) for a, b in zip(out, span_sweep.span_reduce_reference(
+                folded, kw["items"], args[4].shape[0], kw["dim"])))
+        del folded
     if timed:
         row["ms"] = cuda_ms(lambda: span_sweep.span_sweep(*args, **kw), 20)
         row["plain_ms"] = cuda_ms(lambda: span_sweep.span_sweep_reference(*args, **kw), 3)
@@ -1083,12 +1119,18 @@ def compare_span(name: str, case: dict, timed: bool) -> dict:
         row["bound_ms"], row["bound_by"] = bound(
             flop, nbytes(*args, kw["items"], *out), f64=dtype == torch.float64
         )
+        if general:  # the item kernel's own device time, without the wrapper's host work
+            row["kernel_ms"] = traced_call_ms(
+                lambda: span_sweep.span_sweep(*args, **kw), "span_sweep_general_kernel", 20)
+            row["share"] = row["bound_ms"] / row["kernel_ms"]
     if not general:
         row.update(prefilter_share(args, kw), max_abs_pos=case.get("max_abs_pos"))
         print("prefilter " + json.dumps(dict(case=name, **{k: row[k] for k in (
             "pairs", "prefilter_passes", "prefilter_pass_rate", "candidates", "candidate_share",
             "passes_per_candidate", "max_abs_pos")})))
     print("compare_span " + json.dumps(row))
+    if general:
+        check(row["bitwise_fold"], f"{name}: the general sweep is not the member-order fold")
     check(bool(torch.equal(c_k, c_p)), f"{name}: candidate counts differ")
     check(bool(torch.equal(z_k, z_p)), f"{name}: zero counts differ")
     check(ok_force, f"{name}: forces differ by up to {err} (max|force| {scale})")
@@ -1098,6 +1140,130 @@ def compare_span(name: str, case: dict, timed: bool) -> dict:
         check(row["prefilter_passes"] >= row["candidates"],
               f"{name}: the prefilter passed {row['prefilter_passes']} pairs for {row['candidates']} candidates")
     return row
+
+
+# ------------------------------------------------ the general kernels' folds
+def ordered_fold(acc, group, terms):
+    """``acc`` with ``terms[i]`` added into row ``group[i]`` one entry at a
+    time in entry order (``group`` nondecreasing): acc[g] + t, each sum
+    rounded on its own, the left fold of each row's entries."""
+    import torch
+
+    if group.numel() == 0:
+        return acc
+    counts = torch.bincount(group, minlength=acc.shape[0])
+    rank = torch.arange(group.numel(), device=group.device) - (torch.cumsum(counts, 0) - counts)[group]
+    order = torch.argsort(rank, stable=True)  # the entries of rank 0, then of rank 1, ...
+    start = 0
+    for end in torch.cumsum(torch.bincount(rank), 0).tolist():
+        sel = order[start:end]
+        g = group[sel]
+        acc[g] = acc[g] + terms[sel]
+        start = end
+    return acc
+
+
+def ieee_sqrt(x):
+    """sqrt correctly rounded in x's type, as the kernels' sqrtf and sqrt:
+    torch's on the card, numpy's on the CPU (torch's vectorised CPU sqrt is
+    within an ulp, not correctly rounded)."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.sqrt(x.numpy())) if x.device.type == "cpu" else torch.sqrt(x)
+
+
+def dense_fold(pos, invw, colors, adj, *, dim, L, att_scale, rep_scale, additive, rows=None):
+    """The general dense kernel's forces and coincident counts transcribed
+    in plain torch: each row's active columns folded from +0 in ascending
+    column order, acc + coeff * (p_r - p_c), every operation rounded on its
+    own as the kernel's (built with --fmad=false): bitwise the kernel's."""
+    import torch
+
+    from wembed_tpu_torch.kernels.fused_dense import neighbour_mask
+
+    n = pos.shape[0]
+    r0, r1 = rows or (0, n)
+    L2 = float(L) * float(L)
+    force = torch.zeros((r1 - r0, dim), dtype=pos.dtype, device=pos.device)
+    zero = torch.zeros((r1 - r0,), dtype=torch.int32, device=pos.device)
+    for s in range(r0, r1, 1024):
+        e = min(s + 1024, r1)
+        dist2 = torch.zeros((e - s, n), dtype=pos.dtype, device=pos.device)
+        for k in range(dim):
+            diff = pos[s:e, k, None] - pos[None, :, k]
+            dist2 = dist2 + diff * diff
+        iw_r, iw_c = invw[s:e, None], invw[None, :]
+        ws = iw_r + iw_c if additive else iw_r * iw_c
+        nbr = neighbour_mask(adj, slice(s, e), n)
+        wdist2 = dist2 * (ws * ws)
+        rep = ~nbr & (colors[s:e, None] != colors[None, :]) & (wdist2 <= L2)
+        att = nbr & (wdist2 > L2)
+        posd = dist2 > 0
+        zero[s - r0 : e - r0] = torch.sum(~posd & (nbr | rep), dim=1).to(torch.int32)
+        inv = 1.0 / torch.clamp_min(ieee_sqrt(dist2), 1e-30)
+        coeff = torch.where(rep, rep_scale * ws * inv, -(att_scale * ws * inv))
+        r, c = torch.nonzero((rep & posd) | att, as_tuple=True)  # rows ascending, then columns
+        terms = coeff[r, c][:, None] * (pos[s + r] - pos[c])
+        force[s - r0 : e - r0] = ordered_fold(force[s - r0 : e - r0], r, terms)
+    return force, zero
+
+
+def sweep_fold(qrec, qcol, srec, scol, blk_t, start_tile, tile_off, *, dim, L, rep_scale, additive,
+               items, chunk=16):
+    """The general sweep kernel's per-item partials, the scratch (items,
+    d + 3, 256) with the counts as values, transcribed in plain torch: each
+    slot's candidates of an item folded from +0 in member (walk) order,
+    acc + coeff * (q - s) and loss + (L/ws - dist), every operation rounded
+    on its own: bitwise the kernel's scratch."""
+    import torch
+
+    from wembed_tpu_torch.kernels import span_sweep
+
+    Q, ST, d = span_sweep.Q, span_sweep.ST, dim
+    dtype, dev = qrec.dtype, qrec.device
+    n_items = items.shape[0]
+    _, stile, item = span_sweep._item_tiles(items, blk_t, start_tile, tile_off)
+    k_max = int(items[:, 3].max()) if n_items else 0
+    first = torch.cumsum(items[:, 3].to(torch.int64), 0) - items[:, 3].to(torch.int64)
+    slot_of_tile = torch.arange(item.numel(), device=dev) - first[item]
+    members = torch.full((n_items, k_max * ST), -1, dtype=torch.int64, device=dev)
+    members.view(n_items, k_max, ST)[item, slot_of_tile] = stile[:, None].to(torch.int64) * ST + torch.arange(ST, device=dev)
+    q3, qc3 = qrec.view(-1, Q, d + 3), qcol.view(-1, Q)
+    scratch = torch.zeros((n_items, d + 3, Q), dtype=dtype, device=dev)
+    L2 = float(L) * float(L)
+    for a in range(0, n_items, chunk):
+        b = min(a + chunk, n_items)
+        blk = items[a:b, 0].to(torch.int64)
+        q, qc = q3[blk], qc3[blk]  # (B, Q, C), (B, Q)
+        m = members[a:b]
+        present = m >= 0
+        s, sc = srec[m.clamp_min(0)], scol[m.clamp_min(0)]  # (B, M, C), (B, M)
+        dist2 = torch.zeros((b - a, Q, m.shape[1]), dtype=dtype, device=dev)
+        for k in range(d):
+            diff = q[:, :, k, None] - s[:, None, :, k]
+            dist2 = dist2 + diff * diff
+        valid = (dist2 <= q[:, :, d + 1, None] * s[:, None, :, d + 1]) & (qc[:, :, None] != sc[:, None, :])
+        valid &= present[:, None, :]
+        posd = dist2 > 0
+        ws = q[:, :, d, None] + s[:, None, :, d] if additive else q[:, :, d, None] * s[:, None, :, d]
+        act = valid & posd & (dist2 * (ws * ws) <= L2)
+        bb, qq, mm = torch.nonzero(act, as_tuple=True)  # slots in order, then members in walk order
+        d2, w = dist2[bb, qq, mm], ws[bb, qq, mm]
+        dist = ieee_sqrt(d2)
+        coeff = rep_scale * w * (1.0 / dist)
+        sm = s[bb, mm]
+        qv = q[bb, qq]
+        l_over_ws = torch.full_like(w, L) / w if additive else (L * qv[:, d + 2]) * sm[:, d + 2]  # one division
+        group = bb * Q + qq
+        force = ordered_fold(torch.zeros(((b - a) * Q, d), dtype=dtype, device=dev), group,
+                             coeff[:, None] * (qv[:, :d] - sm[:, :d]))
+        loss = ordered_fold(torch.zeros(((b - a) * Q,), dtype=dtype, device=dev), group, l_over_ws - dist)
+        scratch[a:b, :d] = force.view(b - a, Q, d).transpose(1, 2)
+        scratch[a:b, d] = loss.view(b - a, Q)
+        scratch[a:b, d + 1] = valid.sum(2).to(dtype)
+        scratch[a:b, d + 2] = (valid & ~posd).sum(2).to(dtype)
+    return scratch
 
 
 # ------------------------------------------------------- the sweep's reduction
@@ -1203,6 +1369,27 @@ def traced_kernel_ms(fn, reps: int) -> dict:
             fn()
         torch.cuda.synchronize()
     return kernel_ms_of(prof, reps)
+
+
+def traced_call_ms(fn, kernel: str, reps: int) -> float:
+    """The median device ms of one ``kernel`` call over ``reps`` eager calls
+    of ``fn`` in a ``torch.profiler`` trace (after one untraced call): a
+    median of the calls the trace holds, so that calls it drops at its
+    window's edges do not count as zero."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    calls = [e.time_range.elapsed_us() / 1000.0 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and f"{kernel}<" in e.name]
+    check(len(calls) > 0, f"the trace shows no {kernel}")
+    return float(np.median(calls))
 
 
 def compare_reduce(name: str, scratch, items, nb: int, dim: int, timed: bool = False) -> dict:
@@ -3740,6 +3927,15 @@ def run_phases(kind, generators: dict) -> int:
           f"{ {k: v for k, v in fast.items() if v != (0, 0)} }")
     check(len(general) == 4 and all(v == (0, 0) for v in general.values()),
           f"edge_pass: ptxas reports {general} for the general variant")
+    # the general kernels: fused_dense_general_kernel<T, RW> (f32 at RW = 8,
+    # 4, 2; f64 at 4, 2) and span_sweep_general_kernel<T>; none may spill
+    general_ptxas = {
+        k: v for k, v in {**ptxas_entries(infos["fused_dense"].log), **ptxas_entries(sweep_log)}.items()
+        if k.startswith(("fused_dense_general_kernel", "span_sweep_general_kernel"))
+    }
+    print("ptxas_general " + json.dumps(general_ptxas))
+    check(len(general_ptxas) == 7 and all(v["spill_stores"] == v["spill_loads"] == 0 for v in general_ptxas.values()),
+          f"the general kernels: ptxas reports {general_ptxas}")
     # the build's kernels: frame_mean_kernel, frame_axes_kernel and
     # frame_project_kernel <T, D> at D = 1 ... 8 (48), principal_axes_kernel<T, K>
     # (4), span_records_kernel<T, D> at D = 0 ... 8 (18), span_windows_kernel<T>
@@ -3765,12 +3961,16 @@ def run_phases(kind, generators: dict) -> int:
     f64 = torch.float64
     general_dense = {}
     general_rows = []
-    for d, dtype in ((16, None), (33, None), (2, f64), (16, f64)):
+    for d, dt in GENERAL_CASES:
+        dtype = getattr(torch, dt) if dt else None
         label = f"d{d}_{'f64' if dtype else 'f32'}"
         general_rows.append(compare(
             f"n3000_{label}", synthetic_case(3000, d, seed=40 + d, dtype=dtype, spread=0.3), False))
+    for d, dtype in ((16, None), (33, None), (2, f64), (16, f64)):
+        label = f"d{d}_{'f64' if dtype else 'f32'}"
         general_rows.append(compare(f"n1000_coincident_{label}", synthetic_case(
             1000, d, coincident=True, seed=50 + d, dtype=dtype, spread=0.3), False))
+    general_rows.append(compare("n400_d300_f32_crowded", crowd(synthetic_case(400, 300, seed=7, spread=0.3)), False))
     case16 = crowd(girg10k_case(16))
     print("crowd " + json.dumps(dict(case="girg10k_d16_step20", scale=case16["scale"])))
     general_dense["f32_d16"] = compare("girg10k_d16_step20_crowded", case16, timed=True)
@@ -3981,11 +4181,13 @@ def run_phases(kind, generators: dict) -> int:
     windows_cases_synthetic()
 
     # ---- phase 9b: the general sweep (f32 at d > 8, f64)
-    for d, dtype in ((16, None), (33, None), (2, f64), (16, f64)):
+    for n, d, dt in [(8000, d, dt) for d, dt in GENERAL_CASES] + [(2000, 300, None)]:
+        dtype = getattr(torch, dt) if dt else None
         label = f"d{d}_{'f64' if dtype else 'f32'}"
-        row = compare_span(f"n8000_coincident_{label}", synthetic_span_case(
-            8000, d, coincident=True, seed=60 + d, dtype=dtype, spread=0.5), False)
+        row = compare_span(f"n{n}_coincident_{label}", synthetic_span_case(
+            n, d, coincident=True, seed=60 + d, dtype=dtype, spread=GENERAL_SPAN_SPREAD.get(d, 0.5)), False)
         check(row["kernel"] == "general", f"{row['case']}: the general sweep did not run")
+        check(row["max_abs_force"] > 0, f"{row['case']}: no pair repels")
 
     # ---- phase 9e: the sweep's reduction alone on synthetic scratches
     reduce_cases_synthetic()
@@ -4089,6 +4291,24 @@ def run_phases(kind, generators: dict) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         d4 = girg100k_d4(generators, references["girg100k_d4"], Path(tmp))
 
+    # ---- phase 13c: girg100k at d=16 through the API to convergence: the
+    # span path through the general sweep and its reduction, the edge
+    # pass's general variant and the frame's general route
+    t13c = time.perf_counter()
+    api.setSeed(1)
+    wide = api.createEmbedder(graph, api.Options(embeddingDimension=16))
+    general_runs["girg100k_d16_span"] = converge("girg100k_d16_span", wide.impl, graph, "span_sweep")
+    wide_run = general_runs["girg100k_d16_span"]
+    check(wide_run["path"] == "span" and wide_run["launches_general"]["span_sweep"] == wide_run["launches"]["span_sweep"],
+          f"girg100k_d16: not the general sweep: {wide_run['launches_general']}")
+    print("profile_girg100k_d16 " + json.dumps(profile_steps(wide.impl)))
+    wi = wide.impl
+    general_span["girg100k_d16"] = compare_span("girg100k_d16_converged", span_case(
+        wi.state.positions, wi._inv_w, wi._weights, wi._dg.colors, wi._index, wi.opts), timed=True)
+    del wide, wi
+    print("phase13c " + json.dumps(dict(seconds=time.perf_counter() - t13c, iterations=wide_run["iterations"],
+                                        MAP=wide_run["MAP"], step_ms=wide_run["step_ms"])))
+
     # ---- phase 14: girg100k in f64, with a partial index, replicated on
     # one rank (flat and layered), and on two ranks sharing the card
     api.setSeed(1)
@@ -4157,8 +4377,20 @@ def run_phases(kind, generators: dict) -> int:
                      for k in ("fused_dense", "span_sweep")}
 
     def general_timing(row):
-        return {k: row[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-                if k in row}
+        return {k: row[k] for k in ("case", "max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                    "share") if k in row}
+
+    def general_entry(name, source, replaces, row, launches, **extra):
+        """A general kernel's own entry: its device ms a call (traced) at
+        ``row``'s case, the plain version's, the bound and the launches of
+        the d = 16 and f64 runs."""
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[0], "launches_f64": launches[1], "max_abs_err": row["max_abs_err"],
+            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "share": row["share"], "case": row["case"], **extra,
+            "library_ms": None,  # no PyTorch call computes the masked pass with its tallies
+        }
 
     print(json.dumps({"kernels": [
         {
@@ -4259,6 +4491,19 @@ def run_phases(kind, generators: dict) -> int:
             "bound_by": edge_d2["fused"]["bound_by"],
             "library_ms": None,  # no PyTorch call computes the masked edge pass with its tallies
         },
+        general_entry(
+            "fused_dense_general", "wembed_tpu_torch/csrc/fused_dense.cu", "wembed_tpu/kernels/fused_dense.py:192",
+            general_dense["f32_d16"],
+            (general_runs["girg10k_d16"]["launches"]["fused_dense"], general_runs["girg10k_f64"]["launches"]["fused_dense"]),
+            f64_d2=general_timing(general_dense["f64_d2"]),
+        ),
+        general_entry(
+            "span_sweep_general", "wembed_tpu_torch/csrc/span_sweep.cu", "wembed_tpu/kernels/span_sparse.py:1735",
+            general_span["girg100k_d16"],
+            (general_runs["girg100k_d16_span"]["launches"]["span_sweep"], general_runs["girg100k_f64"]["launches"]["span_sweep"]),
+            girg10k_d16_crowded=general_timing(general_span["f32_d16"]), f64_d2=general_timing(general_span["f64_d2"]),
+            launches_girg10k_d16=general_runs["girg10k_d16_span"]["launches"]["span_sweep"],
+        ),
         *build_kernel_entries(build_rows, build_traces, d4, dict(
             flat=build_launches, layered=layered["launches"], profiled=profiled_span["launches_all"],
             resumed=resume_span["launches_resumed"], resumed_layered=resume_layered["launches"],

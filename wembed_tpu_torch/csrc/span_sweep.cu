@@ -138,15 +138,33 @@
 //
 // The general kernel, span_sweep_general_kernel<T>, runs what the fast one
 // does not take: f32 at d > kMaxDim and f64 at any d, over the same work
-// items and the same per-item scratch layout, with no prefilter.  The
-// record width is a run-time value, so nothing is staged: one thread a
-// query slot reads its query record and each member record (the same
-// address across the CTA) straight from device memory through L1, and
-// adds each active pair's coeff * diff into its slot's scratch column in
-// member order.  Counts go through the scratch as T (at most 4 x 256 pairs
-// an item, exact in f32).  span_reduce_general_kernel<T> adds each block's
-// items in item order, one thread a slot, after the bounds search of the
-// fast reduction.
+// items and the same per-item scratch layout, with no prefilter.  Its
+// outputs are bitwise those of the simple kernel it replaced (one thread a
+// slot reading every member record through L1 and adding into the scratch
+// in device memory): each slot's partial is a left fold from +0 over the
+// item's members in walk order, with the operations of the exact pass
+// above in T.  What bounds it is the common path's 3d + 1 operations a
+// pair in T and the radius test, so it stages and reuses:
+//   - a CTA still takes one item and a thread one query slot, whose
+//     extras (inverse weight, lw^2, rawexp, colour) stay in registers;
+//   - d is staged in slabs of GenCfg<T>::DS dimensions (16 in f32, 8 in
+//     f64) with cp.async, double-buffered, one barrier a step: the block's
+//     query slab ([k][slot], each thread reads its own) and the members'
+//     ([k][member], read as 16-byte broadcasts), with the members' inverse
+//     weights, bm2, rawexp and colours at a group's last slab.  Where d fits
+//     one slab a step is a whole tile and the queries are staged once;
+//     else a step is one slab of a sub-tile of MB members;
+//   - each thread keeps the dist2 of its slot against a sub-tile of MB
+//     members (32 in f32, 16 in f64) in registers across the slabs, so a
+//     staged member value serves the CTA's 256 slots in one broadcast;
+//   - after the last slab the radius and colour tests give the sub-tile's
+//     candidate bits, and the thread walks them in member order: the
+//     counts, the weighted test, the sqrt and division, and coeff * (q - s)
+//     added into the slot's sums, which live in shared memory ([k][slot],
+//     d x 256 values) or, for a d too wide for that, in its scratch column.
+// Counts go through the scratch as T (at most 4 x 256 pairs an item, exact
+// in f32).  span_reduce_general_kernel<T> adds each block's items in item
+// order, one thread a slot, after the bounds search of the fast reduction.
 //
 // One rank's share of the replicated multi-device step is a contiguous
 // slice items[lo:hi] of the table: a block with no items in the slice gets
@@ -873,6 +891,47 @@ cudaError_t launch(const Params& p, int nb, int device, cudaStream_t stream) {
 
 // ---------------------------------------------------------------- general
 
+// The general kernel's shape (header): d in slabs of DS dimensions, the
+// distance pass in sub-tiles of MB members a thread.
+template <typename T>
+struct GenCfg;
+template <>
+struct GenCfg<float> {
+  static constexpr int DS = 16;
+  static constexpr int MB = 32;
+};
+template <>
+struct GenCfg<double> {
+  static constexpr int DS = 8;
+  static constexpr int MB = 16;
+};
+
+// Byte offsets of the general kernel's dynamic shared memory at dimension d:
+// slab buffers of min(d, DS) rows, padded by 16 bytes against bank
+// conflicts in cp.async's stores; one query buffer where d fits one slab.
+template <typename T>
+struct GenLayout {
+  static constexpr int DS = GenCfg<T>::DS;
+  static constexpr int MS = kST + 16 / sizeof(T);  // a member slab's row
+  static constexpr int QS = kQ + 16 / sizeof(T);   // a query slab's row
+  int kr;       // rows of a slab buffer
+  size_t mem;   // 2 x [kr][MS] T
+  size_t qry;   // 1 or 2 x [kr][QS] T
+  size_t mx;    // 2 x [3][kST] T: invw, bm2, rawexp
+  size_t mcol;  // 2 x [kST] int
+  size_t acc;   // [d][kQ] T, when the sums are kept here
+  size_t bytes;
+  __host__ __device__ GenLayout(int d, bool smem_acc) {
+    kr = d < DS ? d : DS;
+    mem = 0;
+    qry = mem + 2 * kr * MS * sizeof(T);
+    mx = qry + (d > DS ? 2 : 1) * kr * QS * sizeof(T);
+    mcol = mx + 2 * 3 * kST * sizeof(T);
+    acc = mcol + 2 * kST * 4;
+    bytes = acc + (smem_acc ? static_cast<size_t>(d) * kQ * sizeof(T) : 0);
+  }
+};
+
 template <typename T>
 struct GeneralParams {
   const T* qrec;           // (nb * kQ, d + 3)
@@ -886,6 +945,8 @@ struct GeneralParams {
   int n_items;
   int R;
   int d;
+  int slabs;               // ceil(d / GenCfg<T>::DS)
+  int smem_acc;            // the slots' force sums in shared memory, else in `scratch`
   T L;
   T L2;
   T rep_scale;
@@ -913,50 +974,180 @@ __device__ __forceinline__ double fold_add(double acc, double x) {
   return acc + x;
 }
 
+__device__ __forceinline__ void cp_async_t(float* dst, const float* src) { cp_async4(dst, src); }
+__device__ __forceinline__ void cp_async_t(double* dst, const double* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+
+// 4 floats or 2 doubles from 16-byte aligned shared memory.
+__device__ __forceinline__ void load16(float (&v)[4], const float* src) {
+  const float4 x = *reinterpret_cast<const float4*>(src);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+__device__ __forceinline__ void load16(double (&v)[2], const double* src) {
+  const double2 x = *reinterpret_cast<const double2*>(src);
+  v[0] = x.x;
+  v[1] = x.y;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) span_sweep_general_kernel(GeneralParams<T> p) {
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 3 : 2) span_sweep_general_kernel(GeneralParams<T> p) {
+  using Lay = GenLayout<T>;
+  constexpr int DS = Lay::DS, MB = GenCfg<T>::MB, MS = Lay::MS, QS = Lay::QS;
+  constexpr int V = 16 / sizeof(T);  // values a 16-byte load
+  extern __shared__ __align__(16) float smem[];
+  unsigned char* const raw = reinterpret_cast<unsigned char*>(smem);
+  const Lay lay(p.d, p.smem_acc != 0);
+  const int KR = lay.kr;
+  T* const s_mem = reinterpret_cast<T*>(raw + lay.mem);
+  T* const s_qry = reinterpret_cast<T*>(raw + lay.qry);
+  T* const s_mx = reinterpret_cast<T*>(raw + lay.mx);
+  int* const s_mcol = reinterpret_cast<int*>(raw + lay.mcol);
+  T* const s_acc = reinterpret_cast<T*>(raw + lay.acc);
+
   const int4 item = p.items[blockIdx.x];
+  const int tid = threadIdx.x;
   const int d = p.d;
   const int C = d + 3;
-  const size_t qslot = (size_t)item.x * kQ + threadIdx.x;
-  const T* q = p.qrec + qslot * C;
+  const int slabs = p.slabs;
+  const size_t qslot = static_cast<size_t>(item.x) * kQ + tid;
+  const T* const q = p.qrec + qslot * C;
   const int qc = p.qcol[qslot];
   const T q_iw = q[d];
   const T q_lw2 = q[d + 1];
   const T q_raw = q[d + 2];
-  T* out = p.scratch + (size_t)blockIdx.x * C * kQ + threadIdx.x;  // channel c at out[c * kQ]
-  for (int k = 0; k < d; ++k) out[k * kQ] = T(0);
+  T* const out = p.scratch + static_cast<size_t>(blockIdx.x) * C * kQ + tid;  // channel c at out[c * kQ]
+  T* const acc = p.smem_acc ? s_acc + tid : out;                             // dimension k at acc[k * kQ]
+  for (int k = 0; k < d; ++k) acc[k * kQ] = T(0);
   T lsum = T(0);
   int cnt = 0, zc = 0;
 
-  Walk walk{item.x, item.y, item.z, 0, 0};
-  walk.load_row(p);
-  for (int i = 0; i < item.w; ++i) {
-    if (i > 0) walk.next(p);
-    const size_t first = (size_t)walk.tile() * kST;
-    for (int m = 0; m < kST; ++m) {
-      const T* s = p.srec + (first + m) * C;
-      T dist2 = T(0);
-      for (int k = 0; k < d; ++k) {
-        const T diff = q[k] - s[k];
-        dist2 = dist2 + diff * diff;
-      }
-      if (!((dist2 <= q_lw2 * s[d + 1]) && (qc != p.scol[first + m]))) continue;
-      // the rare path: a candidate
-      ++cnt;
-      if (!(dist2 > T(0))) {
-        ++zc;
-        continue;
-      }
-      const T ws = p.additive ? q_iw + s[d] : q_iw * s[d];
-      if (!(dist2 * (ws * ws) <= p.L2)) continue;
-      const T dist = ieee_sqrt(dist2);
-      const T inv = T(1) / dist;
-      const T coeff = p.rep_scale * ws * inv;
-      for (int k = 0; k < d; ++k) out[k * kQ] = out[k * kQ] + coeff * (q[k] - s[k]);
-      const T l_over_ws = p.additive ? p.L / ws : (p.L * q_raw) * s[d + 2];
-      lsum = lsum + (l_over_ws - dist);
+  // a step is slab sl of member group g of a tile: the whole tile where d
+  // fits one slab, else MB members (one sub-tile)
+  const int gm = slabs == 1 ? kST : MB;  // members a group
+  const int per_tile = kST / gm * slabs;  // steps a tile
+  const int steps = item.w * per_tile;
+  auto stage = [&](int s, int tile) {
+    const int g = s % per_tile / slabs, sl = s % slabs;
+    const int k0 = sl * DS, kn = min(DS, d - k0);
+    const size_t m0 = static_cast<size_t>(tile) * kST + g * gm;  // the group's first member
+    // a thread a member (a query slot), every (kThreads / gm)-th dimension
+    // of it: conflict-free stores, each record's values from one L1 line
+    T* const ms = s_mem + (s & 1) * KR * MS;
+    const int m = tid % gm;
+    const T* const msrc = p.srec + (m0 + m) * C;
+    for (int k = tid / gm; k < kn; k += kThreads / gm) cp_async_t(ms + k * MS + m, msrc + k0 + k);
+    if (sl == slabs - 1 && tid < gm) {  // what the masks and the fold read beside the positions
+      T* const mx = s_mx + (s & 1) * 3 * kST;
+      for (int c = 0; c < 3; ++c) cp_async_t(mx + c * kST + m, msrc + d + c);
+      cp_async4(reinterpret_cast<float*>(s_mcol + (s & 1) * kST + m), p.scol + m0 + m);
     }
+    if (slabs > 1 || s == 0) {  // the block's queries: a single slab once, into buffer 0
+      T* const qs = s_qry + (s & 1) * KR * QS;
+      const T* const qsrc = p.qrec + (static_cast<size_t>(item.x) * kQ + tid) * C + k0;
+      for (int k = 0; k < kn; ++k) cp_async_t(qs + k * QS + tid, qsrc + k);
+    }
+    cp_async_commit();
+  };
+
+  Walk walk{item.x, item.y, item.z, 0, 0};
+  int staged_tile = 0;
+  if (steps > 0) {
+    walk.load_row(p);
+    staged_tile = walk.tile();
+    stage(0, staged_tile);
+  }
+  T dist2[MB];
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<0>();
+    __syncthreads();  // step s is in place; every thread is done with step s - 1
+    const int tile = staged_tile;
+    if (s + 1 < steps) {
+      if ((s + 1) % per_tile == 0) {
+        walk.next(p);
+        staged_tile = walk.tile();
+      }
+      stage(s + 1, staged_tile);
+    }
+    const int g = s % per_tile / slabs, sl = s % slabs;
+    const int kn = min(DS, d - sl * DS);
+    const T* const ms = s_mem + (s & 1) * KR * MS;
+    const T* const qs = s_qry + (slabs > 1 ? (s & 1) : 0) * KR * QS;
+    const T* const mx = s_mx + (s & 1) * 3 * kST;
+    const int* const mcol = s_mcol + (s & 1) * kST;
+    for (int u = 0; u < gm / MB; ++u) {  // sub-tiles of MB members
+      if (sl == 0) {
+#pragma unroll
+        for (int j = 0; j < MB; ++j) dist2[j] = T(0);
+      }
+      // dist2 over the slab's dimensions, in ascending k after the earlier slabs'
+#pragma unroll 2
+      for (int k = 0; k < kn; ++k) {
+        const T qv = qs[k * QS + tid];
+        const T* const mrow = ms + k * MS + u * MB;
+#pragma unroll
+        for (int jb = 0; jb < MB; jb += V) {
+          T mv[V];
+          load16(mv, mrow + jb);
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            const T diff = qv - mv[v];
+            dist2[jb + v] = dist2[jb + v] + diff * diff;
+          }
+        }
+      }
+      if (sl < slabs - 1) continue;
+
+      // the candidates of the sub-tile: the radius test and the colours
+      unsigned bits = 0u;
+#pragma unroll
+      for (int jb = 0; jb < MB; jb += 4) {
+        const int4 c4 = *reinterpret_cast<const int4*>(mcol + u * MB + jb);
+        const int cs[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const T bm2 = mx[kST + u * MB + jb + v];
+          const bool valid = (dist2[jb + v] <= q_lw2 * bm2) && (qc != cs[v]);
+          bits |= static_cast<unsigned>(valid) << (jb + v);
+        }
+      }
+      // the slot's fold: its candidates in member order
+      while (bits != 0u) {
+        const int j = __ffs(bits) - 1;
+        bits &= bits - 1u;
+        T d2 = T(0);
+#pragma unroll
+        for (int jj = 0; jj < MB; ++jj) {
+          if (jj == j) d2 = dist2[jj];
+        }
+        ++cnt;
+        if (!(d2 > T(0))) {
+          ++zc;
+          continue;
+        }
+        const int m = u * MB + j;  // within the step's members
+        const T ws = p.additive ? q_iw + mx[m] : q_iw * mx[m];
+        if (!(d2 * (ws * ws) <= p.L2)) continue;
+        const T dist = ieee_sqrt(d2);
+        const T inv = T(1) / dist;
+        const T coeff = p.rep_scale * ws * inv;
+        if (slabs == 1) {  // both records are staged whole
+          for (int k = 0; k < d; ++k) acc[k * kQ] = acc[k * kQ] + coeff * (qs[k * QS + tid] - ms[k * MS + m]);
+        } else {
+          const T* const sg = p.srec + (static_cast<size_t>(tile) * kST + g * gm + m) * C;
+          for (int k = 0; k < d; ++k) acc[k * kQ] = acc[k * kQ] + coeff * (q[k] - sg[k]);
+        }
+        const T l_over_ws = p.additive ? p.L / ws : (p.L * q_raw) * mx[2 * kST + m];
+        lsum = lsum + (l_over_ws - dist);
+      }
+    }
+  }
+  if (p.smem_acc) {
+    for (int k = 0; k < d; ++k) out[k * kQ] = acc[k * kQ];
   }
   out[d * kQ] = lsum;
   out[(d + 1) * kQ] = static_cast<T>(cnt);
@@ -995,9 +1186,28 @@ cudaError_t launch_reduce_general(const GeneralParams<T>& p, int nb, cudaStream_
 }
 
 template <typename T>
-cudaError_t launch_general(const GeneralParams<T>& p, int nb, cudaStream_t stream) {
+cudaError_t launch_general(GeneralParams<T> p, int nb, int device, cudaStream_t stream) {
   if (p.n_items > 0) {
-    span_sweep_general_kernel<T><<<p.n_items, kThreads, 0, stream>>>(p);
+    // the force sums in shared memory where they fit, else in the scratch
+    static int optin[kMaxDevices] = {};
+    static size_t opted[kMaxDevices] = {};
+    int limit = 0;
+    if (device >= 0 && device < kMaxDevices && optin[device] > 0) {
+      limit = optin[device];
+    } else {
+      const cudaError_t err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+      if (err != cudaSuccess) return err;
+      if (device >= 0 && device < kMaxDevices) optin[device] = limit;
+    }
+    p.smem_acc = GenLayout<T>(p.d, true).bytes <= static_cast<size_t>(limit) ? 1 : 0;
+    const size_t bytes = GenLayout<T>(p.d, p.smem_acc != 0).bytes;
+    if (device < 0 || device >= kMaxDevices || opted[device] < bytes) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          span_sweep_general_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      if (err != cudaSuccess) return err;
+      if (device >= 0 && device < kMaxDevices) opted[device] = bytes;
+    }
+    span_sweep_general_kernel<T><<<p.n_items, kThreads, bytes, stream>>>(p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -1024,7 +1234,7 @@ cudaError_t general(const void* qrec, const int* qcol, const void* srec, const i
                     const int* blk_t, const int* start_tile, const int* tile_off,
                     const int* items, int n_items, int nb, int R, int dim, double L,
                     double rep_scale, int additive, void* scratch, void* force, void* loss,
-                    int* count, int* zero, cudaStream_t stream) {
+                    int* count, int* zero, int device, cudaStream_t stream) {
   GeneralParams<T> p;
   p.qrec = static_cast<const T*>(qrec);
   p.qcol = qcol;
@@ -1037,6 +1247,8 @@ cudaError_t general(const void* qrec, const int* qcol, const void* srec, const i
   p.n_items = n_items;
   p.R = R;
   p.d = dim;
+  p.slabs = (dim + GenCfg<T>::DS - 1) / GenCfg<T>::DS;
+  p.smem_acc = 0;
   p.L = static_cast<T>(L);
   p.L2 = static_cast<T>(L * L);
   p.rep_scale = static_cast<T>(rep_scale);
@@ -1046,7 +1258,7 @@ cudaError_t general(const void* qrec, const int* qcol, const void* srec, const i
   p.loss = static_cast<T*>(loss);
   p.count = count;
   p.zero = zero;
-  return launch_general<T>(p, nb, stream);
+  return launch_general<T>(p, nb, device, stream);
 }
 
 }  // namespace
@@ -1128,10 +1340,12 @@ int wembed_span_sweep_general(const void* qrec, const int* qcol, const void* sre
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f64) {
     err = general<double>(qrec, qcol, srec, scol, blk_t, start_tile, tile_off, items, n_items,
-                          nb, R, dim, L, rep_scale, additive, scratch, force, loss, count, zero, s);
+                          nb, R, dim, L, rep_scale, additive, scratch, force, loss, count, zero,
+                          device, s);
   } else {
     err = general<float>(qrec, qcol, srec, scol, blk_t, start_tile, tile_off, items, n_items,
-                         nb, R, dim, L, rep_scale, additive, scratch, force, loss, count, zero, s);
+                         nb, R, dim, L, rep_scale, additive, scratch, force, loss, count, zero,
+                         device, s);
   }
   return static_cast<int>(err);
 }

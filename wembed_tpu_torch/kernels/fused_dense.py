@@ -40,6 +40,7 @@ import torch
 from . import _build
 
 _REFERENCE_BLOCK = 1024  # rows per block of the plain version
+GENERAL_ROWS_PER_BLOCK = 16  # the fewest rows a CTA of the general kernel (csrc kWarps * kGenMinRowsPerWarp)
 
 
 def adjacency_bits(src: torch.Tensor, dst: torch.Tensor, n: int) -> torch.Tensor:
@@ -232,7 +233,9 @@ def fused_dense_forces(
         )
         _raise_on(lib, rc, "fused_dense kernel launch")
     else:
-        parts = -(-(r1 - r0) // lib.wembed_fused_dense_general_rows_per_block())
+        if lib.wembed_fused_dense_general_rows_per_block() != GENERAL_ROWS_PER_BLOCK:
+            raise RuntimeError("csrc/fused_dense.cu and kernels/fused_dense.py disagree on the general kernel's rows")
+        parts = -(-(r1 - r0) // GENERAL_ROWS_PER_BLOCK)  # its CTAs at the fewest rows a CTA
         part_loss = torch.empty((parts, 2), dtype=torch.float64, device=device)
         part_count = torch.empty((parts,), dtype=torch.int64, device=device)
         rc = lib.wembed_fused_dense_general(
