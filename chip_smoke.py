@@ -1547,13 +1547,15 @@ def edge_inputs(pos, inv_w, weights, colors, index, opts, in_index=None, share=N
     )
 
 
-def wide_edge_case(d: int, dtype, n: int = 4000, hub: int = 300, seed: int = 90, coincident: int = 0) -> dict:
+def wide_edge_case(d: int, dtype, n: int = 4000, hub: int = 300, seed: int = 90, coincident: int = 0,
+                   share=None) -> dict:
     """The edge pass's inputs around a long segment: a random graph whose
     vertex 0 has ``hub`` more edges (folded by a whole CTA; in slabs of 256
     columns for rows wider than a CTA) at distances around the edge
     length, every ``coincident``-th of them (when given) with its endpoint
     on the hub, heavy-tailed weights, windows sized to the needs, in
-    ``dtype``."""
+    ``dtype``, over the edges of ``share`` (default: all; vertex 0's edges
+    come first, so the first share of a few holds the hub)."""
     import numpy as np
     import torch
 
@@ -1584,7 +1586,7 @@ def wide_edge_case(d: int, dtype, n: int = 4000, hub: int = 300, seed: int = 90,
         if int(s.overflow) == 0 or grown is None:
             break
         idx = grown
-    case = edge_inputs(*tensors, idx, opts)
+    case = edge_inputs(*tensors, idx, opts, share=share)
     row_ptr = case["args"][4]
     check(int((row_ptr[1:] - row_ptr[:-1]).max()) >= hub, f"wide_d{d}: no segment of {hub} edges")
     return case
@@ -1703,7 +1705,7 @@ def edge_pass_converged(name: str, impl, launches: int) -> dict:
     share (``compare_edge_pass``, timed), beside the run's launches."""
     row = compare_edge_pass(name, edge_case(impl), modes=("fused",), timed=True)["fused"]
     line = {k: row[k] for k in ("case", "d", "edges", "longest_segment", "kernel", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "share")}
+                                "bound_by", "share", "max_abs_err")}
     line["launches"] = launches
     print("edge_pass_converged " + json.dumps(line))
     return line
@@ -1716,8 +1718,11 @@ def edge_pass_cases_d2(impl) -> dict:
     the segments clipped to it), with every 97th edge's endpoints made to
     coincide (kicks, among them ``extreme_draws``, and coincident
     neighbours); then ``wide_edge_case`` with a hub of 10,500 edges (every
-    97th spoke coincident) at d = 1, 2, 4, 8 (f32), 4 (f64) and 9 (the
-    general variant), d=4 timed in both types, and at d=300 (f32, f64), d=520 and d=2100 (f64)."""
+    97th spoke coincident) at d = 1, 2, 4, 8 (f32), 4 (f64), 9 and 16 (f32,
+    f64; the general variant), d = 4 and 16 timed in both types, d = 16
+    over the first share of three (the hub, the last segment clipped), and
+    at d=300 (f32, f64), d=520 and d=2100 (f64).  Returns the girg100k
+    rows and the timed d = 16 hub rows."""
     import torch
 
     from wembed_tpu_torch.core import EmbedderOptions
@@ -1744,14 +1749,19 @@ def edge_pass_cases_d2(impl) -> dict:
             edge_case(impl, positions=p, draws=extreme_draws(p, met[:5], dtype)))
         check(all(coincident[m]["coincident_neighbours"] > 0 for m in ("fused", "correction")),
               "the coincident edge case counted no coincident neighbour")
+    hub16 = {}
     for d, dtype in ((1, torch.float32), (2, torch.float32), (4, torch.float32), (8, torch.float32),
-                     (4, torch.float64), (9, torch.float32)):
-        compare_edge_pass(f"n12000_hub10500_d{d}_{str(dtype).split('.')[1]}",
-                          wide_edge_case(d, dtype, n=12000, hub=10500, coincident=97), timed=d == 4)
+                     (4, torch.float64), (9, torch.float32), (16, torch.float32), (16, torch.float64)):
+        name = f"n12000_hub10500_d{d}_{str(dtype).split('.')[1]}"
+        got = compare_edge_pass(name, wide_edge_case(d, dtype, n=12000, hub=10500, coincident=97), timed=d in (4, 16))
+        if d == 16:
+            hub16[name] = got
+    compare_edge_pass("n12000_hub10500_d16_float32_share_0_of_3",
+                      wide_edge_case(16, torch.float32, n=12000, hub=10500, coincident=97, share=Share(0, 3, None)))
     for d, dtype, n in ((300, torch.float32, 4000), (300, torch.float64, 4000), (520, torch.float32, 4000),
                         (2100, torch.float64, 1500)):
         compare_edge_pass(f"n{n}_hub_d{d}_{str(dtype).split('.')[1]}", wide_edge_case(d, dtype, n=n))
-    return rows
+    return rows, hub16
 
 
 def plain_edge_pass_run(graph, single: dict, kernel_map: float) -> dict:
@@ -2388,7 +2398,7 @@ LAUNCH_PHASES = (  # name patterns of a span step's device events, in the order 
     ("build_kernels", ("principal_axes_kernel", "span_records_kernel", "span_windows_kernel", *FRAME_KERNELS)),
     ("sorts", ("RadixSort", "fill_reverse", "radix_sort", "sort_")),
     ("sweep", ("span_sweep_kernel", "span_reduce_kernel", "span_sweep_general", "span_reduce_general")),
-    ("edge_pass", ("segment_pass_kernel", "edge_pass_kernel", "edge_segment_kernel")),
+    ("edge_pass", ("segment_pass_kernel", "segment_pass_general_kernel")),
 )
 
 
@@ -3236,7 +3246,7 @@ def kernels_a_replay(impl, steps: int = 5) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     names = ("fused_dense_kernel", "rows_kernel", "finalize_kernel", "span_sweep_kernel",
-             "span_reduce_kernel", "segment_pass_kernel", "edge_pass_kernel", "edge_segment_kernel")
+             "span_reduce_kernel", "segment_pass_kernel", "segment_pass_general_kernel")
 
     def step():
         impl._state = impl._step(impl._state)
@@ -3336,8 +3346,7 @@ def step_graph_runs(graph10k, graph100k) -> dict:
             check(row["window_changes_graphed"] >= 1,
                   f"step graph {name}: no window change in {GRAPH_STEPS} steps")
             check(replay["span_sweep_kernel"] == replay["span_reduce_kernel"] == 1
-                  and replay["segment_pass_kernel"] == 1
-                  and replay["edge_pass_kernel"] == replay["edge_segment_kernel"] == 0,
+                  and replay["segment_pass_kernel"] == 1 and replay["segment_pass_general_kernel"] == 0,
                   f"step graph {name}: {replay} a replay")
         else:
             check(replay["fused_dense_kernel"] == 1, f"step graph {name}: {replay} a replay")
@@ -3918,14 +3927,16 @@ def run_phases(kind, generators: dict) -> int:
         for dtype, code in (("f32", "f"), ("f64", "d")) for c, cover in enumerate(("windows", "cells", "attraction"))
     }))
     # every instantiation spill-free: segment_pass_kernel in f32 and f64 at
-    # d = 1 ... 8 under each C (48), the general variant's two kernels (4)
+    # d = 1 ... 8 under each C (48), segment_pass_general_kernel<T, C> in
+    # f32 and f64 under each C (6)
     edge_spills = spills(edge_log)
     fast = {k: v for k, v in edge_spills.items() if "segment_pass_kernel" in k}
-    general = {k: v for k, v in edge_spills.items() if "edge_pass_kernel" in k or "edge_segment_kernel" in k}
+    general = {k: v for k, v in ptxas_entries(edge_log).items() if k.startswith("segment_pass_general_kernel<")}
+    print("ptxas_edge_pass_general " + json.dumps(general))
     check(len(fast) == 48 and all(v == (0, 0) for v in fast.values()),
           f"edge_pass: ptxas reports {len(fast)} segment_pass_kernel entries, spills "
           f"{ {k: v for k, v in fast.items() if v != (0, 0)} }")
-    check(len(general) == 4 and all(v == (0, 0) for v in general.values()),
+    check(len(general) == 6 and all(v["spill_stores"] == v["spill_loads"] == 0 for v in general.values()),
           f"edge_pass: ptxas reports {general} for the general variant")
     # the general kernels: fused_dense_general_kernel<T, RW> (f32 at RW = 8,
     # 4, 2; f64 at 4, 2) and span_sweep_general_kernel<T>; none may spill
@@ -4151,7 +4162,7 @@ def run_phases(kind, generators: dict) -> int:
     del case
     compare_span("girg100k_d2_step20_k1", span_case(*at20, k=1), False)
     # ---- phase 9c: the edge pass kernel against its plain version (d=2 here, d=4 below)
-    edge_d2 = edge_pass_cases_d2(impl)
+    edge_d2, edge_hub16 = edge_pass_cases_d2(impl)
     del embedder, impl, st, at20
     api.setSeed(1)
     embedder = api.createEmbedder(graph, api.Options(embeddingDimension=4))
@@ -4301,13 +4312,17 @@ def run_phases(kind, generators: dict) -> int:
     wide_run = general_runs["girg100k_d16_span"]
     check(wide_run["path"] == "span" and wide_run["launches_general"]["span_sweep"] == wide_run["launches"]["span_sweep"],
           f"girg100k_d16: not the general sweep: {wide_run['launches_general']}")
+    check(wide_run["launches_general"]["edge_pass"] == wide_run["launches"]["edge_pass"] == wide_run["iterations"],
+          f"girg100k_d16: not one general edge pass a step: {wide_run['launches']} {wide_run['launches_general']}")
     print("profile_girg100k_d16 " + json.dumps(profile_steps(wide.impl)))
     wi = wide.impl
     general_span["girg100k_d16"] = compare_span("girg100k_d16_converged", span_case(
         wi.state.positions, wi._inv_w, wi._weights, wi._dg.colors, wi._index, wi.opts), timed=True)
+    edge_d16_converged = edge_pass_converged("girg100k_d16_converged", wi, wide_run["launches"]["edge_pass"])
     del wide, wi
     print("phase13c " + json.dumps(dict(seconds=time.perf_counter() - t13c, iterations=wide_run["iterations"],
-                                        MAP=wide_run["MAP"], step_ms=wide_run["step_ms"])))
+                                        MAP=wide_run["MAP"], step_ms=wide_run["step_ms"],
+                                        edge_pass_ms=edge_d16_converged["ms"])))
 
     # ---- phase 14: girg100k in f64, with a partial index, replicated on
     # one rank (flat and layered), and on two ranks sharing the card
@@ -4489,6 +4504,23 @@ def run_phases(kind, generators: dict) -> int:
             "plain_ms": edge_d2["fused"]["plain_ms"],
             "bound_ms": edge_d2["fused"]["bound_ms"],
             "bound_by": edge_d2["fused"]["bound_by"],
+            "library_ms": None,  # no PyTorch call computes the masked edge pass with its tallies
+        },
+        {
+            "name": "edge_pass_general",
+            "route": "cuda",
+            "source": "wembed_tpu_torch/csrc/edge_pass.cu",
+            # no Pallas kernel: the JAX package's span edge pass is plain jnp
+            "replaces": "wembed_tpu/kernels/span_sparse.py:2062",
+            "launches": general_runs["girg100k_d16_span"]["launches"]["edge_pass"],
+            "launches_girg10k_d16": general_runs["girg10k_d16_span"]["launches"]["edge_pass"],
+            "converged": edge_d16_converged,
+            "hub_d16": {name: general_timing(rows["fused"]) for name, rows in edge_hub16.items()},
+            "max_abs_err": edge_d16_converged["max_abs_err"],
+            "ms": edge_d16_converged["ms"],  # graph replays of the fused pass at girg100k d=16 converged
+            "plain_ms": edge_d16_converged["plain_ms"],
+            "bound_ms": edge_d16_converged["bound_ms"],
+            "bound_by": edge_d16_converged["bound_by"],
             "library_ms": None,  # no PyTorch call computes the masked edge pass with its tallies
         },
         general_entry(

@@ -43,7 +43,7 @@ from wembed_tpu_torch.kernels import span_compact, span_sparse
 
 torch.set_num_threads(1)
 
-STRETCH = np.array([3.0, 1.5, 1.0, 1.0])  # anisotropic: both packages find the same axes
+STRETCH = np.array([3.0, 1.5, 1.0, 1.0])  # anisotropic: both packages find the same axes (1 beyond d = 4)
 F32 = dict(rtol=1e-4, atol=5e-5)  # tests/test_torch_span.py:test_forces_match_jax (atol x max|force|)
 
 
@@ -52,7 +52,8 @@ class Case:
     both packages' indexes of one layout: windows at span_scale 8, or cells
     grown until no block truncates (both cover every candidate)."""
 
-    def __init__(self, n, d, *, layout="windows", additive=False, bipartite=False, coincident=False, seed=5):
+    def __init__(self, n, d, *, layout="windows", additive=False, bipartite=False, coincident=False, seed=5,
+                 spread=2.0):
         g, _, _ = jax_generators.girg(n, dim=2, avg_degree=12, ple=2.2, rng=np.random.default_rng(seed))
         if bipartite:
             g = g.with_colors(np.arange(g.num_vertices, dtype=np.int32) % 2)
@@ -61,7 +62,7 @@ class Case:
         self.opts = EmbedderOptions(embedding_dimension=d, additive_weights=additive)
         self.w = jax_weights.initial_weights(g, self.jopts)
         self.inv_w = jax_weights.inv_exp_weights(self.w, d)
-        pos = np.random.default_rng(1).normal(size=(self.n, d)) * 2.0 * STRETCH[:d]
+        pos = np.random.default_rng(1).normal(size=(self.n, d)) * spread * np.r_[STRETCH, np.ones(max(d - 4, 0))][:d]
         if coincident:  # every 11th edge's endpoints coincide
             pos[g.col_idx[::11]] = pos[g.edge_src[::11]]
         self.pos = pos
@@ -393,9 +394,9 @@ def _wide_inputs(mode, d):
 @pytest.mark.parametrize("mode", ep.MODES)
 @pytest.mark.parametrize("d", [300, 2100])
 def test_wrapper_takes_rows_of_any_width(mode, d):
-    """Rows wider than a CTA of the kernel (256 threads) and than its
-    staging buffer (2048 values), with a vertex of more edges than one
-    thread folds alone: the wrapper takes them and gives the plain
+    """Rows wider than a CTA of the kernel (256 threads), whose heavy
+    segments it folds in slabs of 256 columns, with a vertex of more edges
+    than one warp folds alone: the wrapper takes them and gives the plain
     version's results, and vertex 0's attraction row is the f64 sum of its
     edges' pulls within rtol 1e-12."""
     args, kw = _wide_inputs(mode, d)

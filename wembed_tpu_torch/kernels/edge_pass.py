@@ -39,11 +39,16 @@ force: the sweep's, in the span modes.
 
 ``edge_pass`` launches the kernel for CUDA tensors (f32 or f64, any d)
 and runs ``edge_pass_reference`` for CPU tensors; both check their inputs
-alike.  At d <= 8 it is one launch of ``segment_pass_kernel<T, D>``,
-segment-major over the edge set's schedule (``core/edge_schedule.py``),
-with no scratch rows; at d > 8 the general variant, two kernels through
-an (E, d) scratch.  ``edge_pass.launches`` counts every pass the
-kernel makes, ``edge_pass.launches_general`` those of the general variant.
+alike.  A pass is one launch, segment-major over the edge set's schedule
+(``core/edge_schedule.py``), with no scratch rows: at d <= 8
+``segment_pass_kernel<T, D, C>``, its row in registers; above,
+``segment_pass_general_kernel<T, C>``, an edge a lane in rounds of 32 (its
+row read ``SLAB`` = 16 f32 columns at a time into registers for dist2, the
+row itself staged in shared memory where it fits them), then the rows
+folded a lane a column (a heavy segment's CTA: warp 0 folds while 7 warps
+compute, up to ``SPLIT_DIM`` columns; the whole CTA folds wider rows).
+``edge_pass.launches`` counts every pass the kernel makes,
+``edge_pass.launches_general`` those of the general variant.
 """
 
 from __future__ import annotations
@@ -60,7 +65,9 @@ from .span_sweep import ST as _ST
 
 MODES = ("fused", "correction", "attraction")
 MAX_FAST_DIM = 8  # the widest row of segment_pass_kernel; wider rows take the general variant
-_BLOCK = 256  # threads of a CTA in csrc/edge_pass.cu, one edge each in the general variant's first kernel
+SLAB = 16  # the general variant: an f32 lane's row slab (f64: 8), and the staged rows' width
+SPLIT_DIM = 32  # the widest row whose heavy-segment fold is one warp's beside seven computing warps
+_BLOCK = 256  # threads of a CTA in csrc/edge_pass.cu
 
 
 class EdgePass(NamedTuple):
@@ -177,10 +184,10 @@ class _Args(ctypes.Structure):
 
     _fields_ = [
         *((name, ctypes.c_void_p) for name in (
-            "pos", "inv_w", "src", "dst", "row_ptr", "kicks", "bm2", "lwpow", "colors",
-            "in_index", "block_of", "row_of", "rank_of", "blk_t", "start_tile", "start",
-            "stop", "prefix", "base_force", "base_zero", "sched", "dst32", "net", "zflag",
-            "part_loss", "part_count", "force", "zero", "loss", "count",
+            "pos", "inv_w", "row_ptr", "kicks", "bm2", "lwpow", "colors", "in_index",
+            "block_of", "row_of", "rank_of", "blk_t", "start_tile", "start", "stop", "prefix",
+            "base_force", "base_zero", "sched", "dst32", "part_loss", "part_count", "force",
+            "zero", "loss", "count",
         )),
         *((name, ctypes.c_int64) for name in (
             "block_stride", "row_stride", "rank_stride", "blk_s0", "blk_s1", "tile_s0",
@@ -197,6 +204,8 @@ _CONSTANTS = {
     "wembed_edge_pass_light": LIGHT,
     "wembed_edge_pass_warps": WARPS,
     "wembed_edge_pass_max_fast_dim": MAX_FAST_DIM,
+    "wembed_edge_pass_slab": SLAB,
+    "wembed_edge_pass_split_dim": SPLIT_DIM,
 }
 
 
@@ -309,7 +318,7 @@ def edge_pass(
     ``kicks`` (fused, attraction): (E, d) the edges' raw normal draws, a
     row normalised (``unit_rows``) where its edge's endpoints coincide.
     ``schedule``: these edges' schedule (``core/edge_schedule.py``, held
-    beside each edge set); the kernel needs it at d <= 8.  The span modes
+    beside each edge set); the kernel needs it.  The span modes
     take the step's ``structures`` (either layout's), the vertices'
     ``colors`` (i32), ``bm2`` (E,) f32 the radius factor of each edge's dst,
     ``in_index`` (n,) bool the step's members under a partial index (or
@@ -325,22 +334,14 @@ def edge_pass(
         return edge_pass_reference(mode, positions, inv_w, src, dst, row_ptr, opts, **kw)
     if positions.device.type != "cuda":
         raise ValueError(f"no edge_pass kernel for device {positions.device}")
+    if schedule is None:
+        raise ValueError("the edge pass kernel needs the edges' schedule (core/edge_schedule.py)")
     lib = _build.load("edge_pass", _configure)
     n, d = positions.shape
-    num_edges = src.shape[0]
     dtype, device = positions.dtype, positions.device
     span = mode != "attraction"
-    fast = d <= MAX_FAST_DIM
-    if fast and schedule is None:
-        raise ValueError("the edge pass kernel at d <= 8 needs the edges' schedule (core/edge_schedule.py)")
-    if fast:  # one slot a CTA, no scratch rows
-        parts, net, zflag = schedule.ctas, None, None
-    else:
-        parts = max(1, -(-num_edges // _BLOCK))
-        net = torch.empty((num_edges, d), dtype=dtype, device=device)
-        zflag = torch.empty((num_edges,), dtype=torch.uint8, device=device) if span else None
-    part_loss = torch.empty((parts, 2), dtype=dtype, device=device)
-    part_count = torch.empty((parts,), dtype=torch.int64, device=device)
+    part_loss = torch.empty((schedule.ctas, 2), dtype=dtype, device=device)  # one slot a CTA
+    part_count = torch.empty((schedule.ctas,), dtype=torch.int64, device=device)
     out = torch.empty((n, d), dtype=dtype, device=device)
     zero = torch.empty((n,), dtype=torch.int32, device=device) if span else None
     loss = torch.empty((2,), dtype=dtype, device=device)
@@ -351,19 +352,18 @@ def edge_pass(
 
     L = float(opts.edge_length)
     a = _Args(
-        pos=ptr(positions), inv_w=ptr(inv_w), src=ptr(src), dst=ptr(dst), row_ptr=ptr(row_ptr),
-        kicks=ptr(kicks) if mode != "correction" else None, net=ptr(net), part_loss=ptr(part_loss),
+        pos=ptr(positions), inv_w=ptr(inv_w), row_ptr=ptr(row_ptr),
+        kicks=ptr(kicks) if mode != "correction" else None, part_loss=ptr(part_loss),
         part_count=ptr(part_count), force=ptr(out), loss=ptr(loss), count=ptr(count),
-        n=n, d=d, E=num_edges, mode=MODES.index(mode), additive=int(bool(opts.additive_weights)),
+        n=n, d=d, E=src.shape[0], mode=MODES.index(mode), additive=int(bool(opts.additive_weights)),
         L=L, L2=L * L, att_scale=float(opts.attraction_scale), rep_scale=float(opts.repulsion_scale),
+        sched=ptr(schedule.table), dst32=ptr(schedule.dst),
+        heavy=schedule.heavy, medium=schedule.medium, groups=schedule.groups,
     )
-    if fast:
-        a.sched, a.dst32 = ptr(schedule.table), ptr(schedule.dst)
-        a.heavy, a.medium, a.groups = schedule.heavy, schedule.medium, schedule.groups
     if span:  # the span modes' inputs; attraction reads none of them
         s = structures
         a.bm2, a.colors, a.in_index, a.lwpow = ptr(bm2), ptr(colors), ptr(in_index), ptr(s.lwpow)
-        a.base_force, a.base_zero, a.zflag, a.zero = ptr(force), ptr(zero_count), ptr(zflag), ptr(zero)
+        a.base_force, a.base_zero, a.zero = ptr(force), ptr(zero_count), ptr(zero)
         for name in ("block", "row", "rank"):
             t = getattr(s, f"{name}_of")
             setattr(a, f"{name}_of", ptr(t))
@@ -388,7 +388,7 @@ def edge_pass(
         msg = lib.wembed_edge_pass_error_string(rc).decode()
         raise RuntimeError(f"edge_pass kernel launch failed: {msg} (cudaError {rc})")
     edge_pass.launches += 1
-    if not fast:
+    if d > MAX_FAST_DIM:
         edge_pass.launches_general += 1
     if not span:
         return EdgePass(out, None, loss[0], None, None)
@@ -396,4 +396,4 @@ def edge_pass(
 
 
 edge_pass.launches = 0  # passes the kernel made; the plain version is not counted
-edge_pass.launches_general = 0  # of which the general variant's (d > 8, two launches each)
+edge_pass.launches_general = 0  # of which the general variant's (d > 8)

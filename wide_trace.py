@@ -17,20 +17,28 @@ cached in ``build/graphs/`` and md5-checked).  It prints:
 - the run: iterations, the total loss recomputed in f64 from the final
   coordinates and weights by a plain pass (``bench_torch.plain_loss``),
   MAP (1,000 vertices ranked on the card), the launches of each kernel
-  wrapper and of the general kernels, and a sha256 of the final
-  coordinates' bytes (two trees agree bitwise when these agree);
+  wrapper and of the general kernels, the peak device memory of the run
+  (``max_memory_allocated`` since a reset before it), and a sha256 of the
+  final coordinates' bytes (two trees agree bitwise when these agree);
 - ``kernel_ms``: each general kernel's device ms a call in the trace
   (median, quartiles, count): ``fused_dense_general_kernel``,
   ``span_sweep_general_kernel``, ``span_reduce_general_kernel``, the edge
   pass's general variant and the frame's general route
   (``principal_axes_kernel`` with torch's mean and covariance around it);
-- ``bound_ms`` and ``share`` of the dense and sweep general kernels at the
-  run's end: the larger of their FP32 (FP64) operations over 67 (34)
-  TFLOP/s and their bytes over 3.35 TB/s, operations as ``chip_smoke.py``
-  counts them (every pair's 3d + 3 or 3d + 1, and 14 more for each
-  candidate or neighbour);
+- ``bound_ms`` and ``share`` of the general kernels at the run's end: the
+  larger of their FP32 (FP64) operations over 67 (34) TFLOP/s and their
+  bytes over 3.35 TB/s.  The dense and sweep kernels by operations as
+  ``chip_smoke.py`` counts them (every pair's 3d + 3 or 3d + 1, and 14
+  more for each candidate or neighbour); the sweep's reduce by bytes (its
+  (items, d + 3, 256) scratch read once, the (NQ, d + 3) sums written
+  once); the edge pass's general variant as
+  ``chip_smoke.py:edge_pass_bound`` counts the fused pass at the final
+  positions (its share against ``edge_pass_general_ms``, the device ms a
+  step of whichever kernels the tree runs for it); the frame's
+  ``principal_axes_kernel`` as ``chip_smoke.py:build_bounds`` counts the
+  axes on a covariance;
 - ``top``: the trace's ten kernels by device time a step, and the device
-  ms a step.
+  ms and device events a step.
 
 It reads no ``BENCHMARK.json`` and uses only what every tree since the
 general kernels' first version has, so copied into another tree's checkout
@@ -51,9 +59,10 @@ import time
 import bench_torch as bt
 import chip_smoke as cs
 
+EDGE_PASS_GENERAL = ("segment_pass_general_kernel", "edge_pass_kernel", "edge_segment_kernel")  # a tree's, or an older's two
 GENERAL = (
     "fused_dense_general_kernel", "span_sweep_general_kernel", "span_reduce_general_kernel",
-    "edge_pass_kernel", "edge_segment_kernel", "principal_axes_kernel",
+    *EDGE_PASS_GENERAL, "principal_axes_kernel",
 )
 
 
@@ -99,10 +108,13 @@ def graph_of(name: str):
 
 
 def bounds(impl, dim: int, f64: bool) -> dict:
-    """The dense and sweep general kernels' least ms at the run's end (the
-    sweep at the current windows' work tiles).  No public accessor gives
-    the counts or the windows, so they are read from the embedder's state."""
-    from wembed_tpu_torch.kernels import span_sweep
+    """The general kernels' least ms at the run's end (the sweep and its
+    reduce at the current windows' work items, the edge pass at the final
+    positions).  No public accessor gives the counts or the windows, so
+    they are read from the embedder's state."""
+    import torch
+
+    from wembed_tpu_torch.kernels import span_build, span_sweep
 
     n = impl.state.positions.shape[0]
     candidates = int(impl.state.num_rep_forces)
@@ -121,6 +133,15 @@ def bounds(impl, dim: int, f64: bool) -> dict:
         nbytes = 2 * nq * ((dim + 3) * size + 4) + len(items) * 16 + nq * ((dim + 1) * size + 8)
         out["span_sweep_general_kernel"] = cs.bound(flop, nbytes, f64)
         out["tiles"] = tiles
+        out["span_reduce_general_kernel"] = cs.bound(0, (len(items) * 256 + nq) * (dim + 3) * size, f64)
+        axes_flop = 2 * (span_build.ITERS * (2 * dim * dim + 2 * dim) + 2 * dim * dim + 6 * dim)
+        out["principal_axes_kernel"] = cs.bound(axes_flop, (dim * dim + 2 * dim) * size, f64)
+        case = cs.edge_case(impl)
+        args, kw = case["args"], case["kw"]
+        pos = args[0]
+        scalar = [torch.empty((), dtype=pos.dtype, device=pos.device)] * 2
+        passed = (kw["force"], kw["zero_count"], *scalar, torch.empty((), dtype=torch.int64, device=pos.device))
+        out["edge_pass_general"] = cs.edge_pass_bound("fused", args, kw, passed)
     return out
 
 
@@ -158,15 +179,17 @@ def main(argv: list[str] | None = None) -> int:
                     edge_pass=edge_pass.edge_pass)
     before = {k: (w.launches, w.launches_general) for k, w in wrappers.items()}
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     impl.calculate_embedding(max_iterations=args.max_steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
     launches = {k: [w.launches - before[k][0], w.launches_general - before[k][1]] for k, w in wrappers.items()}
     coords, weights = impl.get_coordinates(), impl.get_weights()
     out = dict(graph=args.graph, n=graph.getNumVertices(), d=args.dim, dtype=args.dtype, seed=args.seed,
                max_steps=args.max_steps, path=impl.path, iterations=impl.iteration, wall_s=wall,
-               launches=launches, final_overflow=impl.final_overflow,
+               launches=launches, final_overflow=impl.final_overflow, peak_memory_gib=peak,
                coords_sha256=hashlib.sha256(np.ascontiguousarray(coords).tobytes()).hexdigest(),
                plain_loss=bt.plain_loss(graph.csr, coords, weights, args.dim, 1.0, torch.device("cuda")),
                MAP=cs.map_only(graph.csr, coords, weights))
@@ -174,12 +197,19 @@ def main(argv: list[str] | None = None) -> int:
     calls, total = traced_steps(emb, args.steps)
     out["steps"] = args.steps
     out["device_ms_per_step"] = total / args.steps
+    out["events_per_step"] = sum(len(v) for v in calls.values()) / args.steps
     out["kernel_ms"] = {k: bt.summary(calls[k]) for k in GENERAL if k in calls}
+    edge = [k for k in EDGE_PASS_GENERAL if k in calls]
+    if edge:
+        out["edge_pass_general_ms"] = sum(sum(calls[k]) for k in edge) / args.steps  # device ms a step
+        out["edge_pass_general_kernels"] = edge
     for k, (ms, by) in ((k, v) for k, v in bound.items() if k != "tiles"):
         out.setdefault("bound_ms", {})[k] = ms
         out.setdefault("bound_by", {})[k] = by
         if k in out["kernel_ms"]:
             out.setdefault("share", {})[k] = ms / out["kernel_ms"][k]["value"]
+        elif k == "edge_pass_general" and edge:
+            out.setdefault("share", {})[k] = ms / out["edge_pass_general_ms"]
     if "tiles" in bound:
         out["work_tiles"] = bound["tiles"]
     per_step = sorted(((sum(v) / args.steps, k, len(v) / args.steps) for k, v in calls.items()), reverse=True)
